@@ -1,0 +1,60 @@
+"""The port stands alone: no module of s2p_tpu_torch, and not chip_smoke.py,
+imports JAX, flax or the JAX package; its entry points run on the card
+unless the caller asks for the CPU."""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import s2p_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(s2p_tpu_torch.__path__, "s2p_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "s2p_tpu"))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_nothing_of_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    assert report["bad"] == []
+    assert {"s2p_tpu_torch.gan.cuda_kernels", "s2p_tpu_torch.gan.generator",
+            "s2p_tpu_torch.gan.fast_inference", "s2p_tpu_torch.gan.convert",
+            "s2p_tpu_torch.gan.rollout", "s2p_tpu_torch.data.hdf5",
+            "s2p_tpu_torch.cli.simple_test"} <= set(report["modules"])
+
+
+def test_cli_without_cpu_flag_needs_cuda(monkeypatch, tmp_path):
+    from s2p_tpu_torch.cli.simple_test import main, resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="gpu_ids=-1"):
+        main(["--dataroot", str(tmp_path / "absent.hdf5"), "--init_random"])
+    with pytest.raises(RuntimeError, match="not available"):
+        resolve_device("0,1")
+    assert resolve_device("-1") == torch.device("cpu")
+
+
+def test_generator_defaults_to_the_card():
+    from s2p_tpu_torch.gan import S2PGenerator
+
+    if torch.cuda.is_available():
+        gen = S2PGenerator(17, ngf=8, state_freqs=2, state_embed_dim=16, mat_hidden=8)
+        assert next(gen.parameters()).is_cuda
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            S2PGenerator(17, ngf=8, state_freqs=2, state_embed_dim=16, mat_hidden=8)
