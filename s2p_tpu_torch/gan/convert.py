@@ -1,8 +1,9 @@
-"""Generator weights into the port: JAX params, torch ``.pth`` files.
+"""Generator weights between the port and JAX params or torch ``.pth`` files.
 
-The port of the parts of ``s2p_tpu/gan/convert.py`` that load a generator.
-The port's module names equal the flax parameter tree joined with '.', so a
-JAX ``params`` tree maps to a state dict leaf by leaf:
+The port of the parts of ``s2p_tpu/gan/convert.py`` that load and save a
+generator. The port's module names equal the flax parameter tree joined
+with '.', so a JAX ``params`` tree maps to a state dict leaf by leaf, and
+back:
 
 - ``kernel`` rank 4 (conv):  flax HWIO → torch OIHW
 - ``kernel`` rank 2 (dense): flax (in, out) → torch (out, in)
@@ -50,6 +51,40 @@ def state_dict_from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Ten
 
     rec(params, "")
     return out
+
+
+def jax_params_from_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``state_dict_from_jax_params``: a state dict as the
+    flax ``params`` tree with float32 numpy leaves (HWIO conv kernels,
+    (in, out) dense kernels)."""
+    tree: Dict[str, Any] = {}
+    for key, value in sd.items():
+        *path, leaf = key.split(".")
+        v = _to_numpy(value).astype(np.float32)
+        if leaf == "weight":
+            if v.ndim == 4:
+                leaf, v = "kernel", v.transpose(2, 3, 1, 0)
+            elif v.ndim == 2:
+                leaf, v = "kernel", v.T
+            else:
+                leaf = "scale"
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = np.ascontiguousarray(v)
+    return tree
+
+
+def save_generator_checkpoint(path_base: str, generator: torch.nn.Module) -> None:
+    """Write ``{path_base}.pkl`` (``{"params": <flax-layout numpy tree>}``,
+    as the JAX train CLI writes it) and ``{path_base}.pth`` (the state dict:
+    float32 CPU tensors under the flax tree's names, the layout of JAX's
+    ``params_to_state_dict``), so the JAX package loads what the port
+    trains."""
+    sd = {k: v.detach().float().cpu().contiguous() for k, v in generator.state_dict().items()}
+    with open(path_base + ".pkl", "wb") as f:
+        pickle.dump({"params": jax_params_from_state_dict(sd)}, f)
+    torch.save(sd, path_base + ".pth")
 
 
 # -- SPADE-convention name mapping -------------------------------------------

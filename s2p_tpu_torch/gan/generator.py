@@ -188,6 +188,18 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
                                       b=2 * std, generator=gen))
 
 
+def init_flax_style_(module: nn.Module, seed: int) -> None:
+    """flax's default init of every parameter, in ``named_parameters``
+    order, from ``torch.Generator().manual_seed(seed)`` on the CPU: LeCun
+    normal kernels, zero biases."""
+    gen = torch.Generator().manual_seed(seed)
+    for name, p in module.named_parameters():
+        if name.endswith("bias"):
+            nn.init.zeros_(p)
+        else:
+            _lecun_normal_(p, p[0].numel(), gen)
+
+
 class S2PGenerator(nn.Module):
     """``netG=s2p``: progressive upsampling from a state-seeded ``hw0×hw0``
     grid through MAT res-blocks to ``image_size``; tanh output in [-1, 1].
@@ -219,12 +231,7 @@ class S2PGenerator(nn.Module):
                 c_in, c_out, state_embed_dim, enc_by_level[i], mat_hidden, mat_mode))
         self.conv_img = conv3x3(blocks[-1][1], out_channels)
 
-        gen = torch.Generator().manual_seed(seed)
-        for name, p in self.named_parameters():  # deterministic order
-            if name.endswith("bias"):
-                nn.init.zeros_(p)
-            else:
-                _lecun_normal_(p, p[0].numel(), gen)
+        init_flax_style_(self, seed)
         self.to(device=device, memory_format=CL)  # conv weights in the activations' layout
 
     @property

@@ -23,13 +23,11 @@ STATE_DIM = 17
 KW = dict(ngf=8, state_freqs=2, state_embed_dim=16, mat_hidden=8)
 
 
-def jax_params(gen: JaxGenerator, batch: int = 2, seed: int = 0):
-    """Seeded numpy weights in the shape of ``gen``'s params: LeCun-scaled
-    kernels and small non-zero biases (so every bias path is exercised)."""
-    size = gen.image_size
-    shapes = jax.eval_shape(gen.init, jax.random.PRNGKey(0),
-                            jnp.zeros((batch, STATE_DIM)),
-                            jnp.zeros((batch, size, size, 3)))["params"]
+def seeded_params(init, *example, seed: int = 0):
+    """Seeded numpy weights in the shape of a flax module's params (from
+    ``jax.eval_shape`` of its ``init``): LeCun-scaled kernels and small
+    non-zero biases (so every bias path is exercised)."""
+    shapes = jax.eval_shape(init, jax.random.PRNGKey(0), *example)["params"]
     rs = np.random.RandomState(seed)
 
     def leaf(path, sd):
@@ -38,6 +36,12 @@ def jax_params(gen: JaxGenerator, batch: int = 2, seed: int = 0):
         return (rs.randn(*sd.shape) / np.sqrt(np.prod(sd.shape[:-1]))).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def jax_params(gen: JaxGenerator, batch: int = 2, seed: int = 0):
+    size = gen.image_size
+    return seeded_params(gen.init, jnp.zeros((batch, STATE_DIM)),
+                         jnp.zeros((batch, size, size, 3)), seed=seed)
 
 
 def make_pair(size: int = 64, mat_mode: str = "mat", seed: int = 0):

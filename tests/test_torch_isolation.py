@@ -35,7 +35,12 @@ def test_port_imports_nothing_of_jax():
     assert {"s2p_tpu_torch.gan.cuda_kernels", "s2p_tpu_torch.gan.generator",
             "s2p_tpu_torch.gan.fast_inference", "s2p_tpu_torch.gan.convert",
             "s2p_tpu_torch.gan.rollout", "s2p_tpu_torch.data.hdf5",
-            "s2p_tpu_torch.cli.simple_test"} <= set(report["modules"])
+            "s2p_tpu_torch.cli.simple_test", "s2p_tpu_torch.gan.discriminator",
+            "s2p_tpu_torch.gan.losses", "s2p_tpu_torch.gan.perceptual",
+            "s2p_tpu_torch.gan.training", "s2p_tpu_torch.gan.metrics",
+            "s2p_tpu_torch.data.pair_dataset", "s2p_tpu_torch.utils.logging",
+            "s2p_tpu_torch.utils.checkpoint", "s2p_tpu_torch.utils.seeding",
+            "s2p_tpu_torch.cli.train_gan"} <= set(report["modules"])
 
 
 def test_cli_without_cpu_flag_needs_cuda(monkeypatch, tmp_path):
@@ -58,3 +63,16 @@ def test_generator_defaults_to_the_card():
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             S2PGenerator(17, ngf=8, state_freqs=2, state_embed_dim=16, mat_hidden=8)
+
+
+def test_trainer_defaults_to_the_card():
+    from s2p_tpu_torch.gan.training import GANTrainer
+
+    kw = dict(image_size=16, use_perceptual=False,
+              generator_kwargs=dict(ngf=8, state_freqs=2, state_embed_dim=16, mat_hidden=8),
+              discriminator_kwargs=dict(ndf=8, n_layers=2, num_scales=1))
+    if torch.cuda.is_available():
+        assert GANTrainer.create(17, **kw).device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            GANTrainer.create(17, **kw)
