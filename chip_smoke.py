@@ -11,9 +11,15 @@ Phases, each of which must pass (the script stops at the first failure):
    version on the card, at every shape the 64px/ngf=64 main path gives it
    (batch 256, bf16 and f32, γ/β as strided halves of one γ‖β tensor as the
    fast path passes them, and contiguous as the module path does), the
-   100px chain's odd shapes, channel counts that are not multiples of 8 or
-   32, and a |mean| ≫ std input. Times kernel, plain version and the
-   ``F.instance_norm`` yardstick per shape beside the bound.
+   100px chain's odd shapes, the scalar path (channel counts off the 32
+   grid, which must not take 16-byte loads, at shapes that run it resident
+   and streaming, each whole and split over a cluster), the streaming path
+   at 256² × 64 (batch 2, which must stream) and a |mean| ≫ std input
+   (split over a cluster both resident and streaming at 32²). Prints each
+   shape's launch plan (path, cluster
+   size k, channel tile, vector or scalar) and times kernel, plain version
+   and the ``F.instance_norm`` yardstick per shape beside the bound, PR 2's
+   kernel time and the wrapper's host time per call.
 4. slice parity: a full-width cheetah generator (64px, ngf=64, state dim
    17, seeded random weights) runs ``generate_rollout_fast`` and
    ``generate_rollout`` (seq_len 5, batch 4, f32, TF32 off) on the card and
@@ -26,11 +32,11 @@ Phases, each of which must pass (the script stops at the first failure):
 6. backward kernel vs plain: ``fused_mat_norm_bwd`` against
    ``fused_mat_norm_bwd_plain`` at every norm shape of the 100px/ngf=64
    training step (batch 16, bf16 and f32, γ separate and as a strided
-   half of one γ‖β tensor) and ragged channel counts; the whole
+   half of one γ‖β tensor), the scalar and the streaming paths; the whole
    ``FusedMATNorm`` against autograd of ``fused_mat_norm_plain``. Times
    kernel, plain version and the autograd backward of ``F.instance_norm``
-   (a partial yardstick) per shape beside the bound; the forward kernel is
-   timed at the same shapes.
+   (a partial yardstick) per shape beside the bound and PR 2's time, with
+   the launch plan; the forward kernel is timed at the same shapes.
 7. training parity: one ``GANTrainer.train_step`` of the full-width
    training configuration (100px, ngf=64, ndf=64, 2 scales × 4 layers, VGG
    loss, R1 on at step 0, state dim 17) at batch 2 in f32 with TF32 off,
@@ -49,6 +55,13 @@ Phases, each of which must pass (the script stops at the first failure):
    chunk; prints steps/sec and images/sec and checks the losses are
    finite. The launch counts are reset to 0 just before the bf16 window
    and read just after it.
+
+``--ab DIR`` runs phases 1 and 2, then times the MAT-norm kernels against
+those of the checkout in DIR in turns, then the two main paths end to end
+(serving frames/sec, bf16 and f32 train step), each side in processes of
+its own (``--time-paths ROOT``), in turns, and stops. ``--sweep`` runs
+phases 1 and 2, then times every launch plan of the two kernels at each
+bf16 main-path shape, and stops.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` also writes a
@@ -87,11 +100,75 @@ BWD_F32_TOL, BWD_BF16_TOL = 1e-4, 1e-2
 # configuration, which the CPU's f32 run measures); floors: relative for
 # metrics, of the module's largest |gradient| for gradients
 PARITY_SLACK, METRIC_FLOOR, GRAD_FLOOR = 3.0, 1e-5, 1e-4
+# PR 2's kernel ms per launch (one block per (image, 32 channels), x read
+# three times, scalar loads), PERF.md §5: NVIDIA H100 80GB HBM3, 700.00 W;
+# (H=W, C) → ms. Wall time per wrapper call, host included: printed beside
+# this run's wall time per call, never compared with it and not in the
+# kernels record (--ab times PR 2's tree in the same call).
+PR2_SERVING_FWD_MS = {(4, 512): 0.0342, (8, 256): 0.0326, (8, 512): 0.0395, (16, 128): 0.0535,
+                      (16, 256): 0.0621, (32, 64): 0.0737, (32, 128): 0.1647, (64, 64): 0.3306}
+PR2_TRAIN_FWD_MS = {(7, 512): 0.0339, (13, 256): 0.0329, (13, 512): 0.0593, (25, 128): 0.0359,
+                    (25, 256): 0.0589, (50, 64): 0.0332, (50, 128): 0.0528, (100, 64): 0.2067}
+PR2_TRAIN_BWD_MS = {(7, 512): 0.0288, (13, 256): 0.0275, (13, 512): 0.0490, (25, 128): 0.0305,
+                    (25, 256): 0.0489, (50, 64): 0.0501, (50, 128): 0.1115, (100, 64): 0.4535}
+PR2_STEP_MS = dict(serving_fwd=1.4224, train_fwd=0.9250, train_bwd=1.4913,
+                   train_fwd_f32=1.0465, train_bwd_f32=1.6213)
+# off the main path: the streaming path (a slice too large for shared memory
+# even split 8 ways) at 256² × 64, batch 2; the scalar path, (batch, H=W, C)
+# with C off the 32 grid, at shapes that take it resident and streaming,
+# each whole and split over a cluster (tests/test_torch_mat_norm_plan.py)
+STREAM_SHAPE = (2, 256, 64)
+SCALAR_SHAPES = ((16, 13, 12), (16, 8, 100), (16, 5, 40), (2, 50, 100), (8, 50, 100),
+                 (64, 25, 40))
+SCALAR_PATHS = {("resident", False), ("resident", True), ("streaming", False),
+                ("streaming", True)}  # (path, split over a cluster)
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Host time per call of ``fn`` with no synchronisation: what one call
+    costs the CPU. Where it is near the kernel's time, the timed loop reads
+    launch overhead, not the kernel."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, whose replay is timed with events, so that no host time between
+    launches enters the number (the wrapper's own host work is not in the
+    graph)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch.cuda.graphs asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    ms = time_ms(graph.replay, iters=5, warmup=1) / iters
+    del graph
+    return ms
+
+
+def plan_label(plan) -> str:
+    return (f"{plan.path} k={plan.cluster} tile={plan.tile_c} "
+            f"{'vec16' if plan.vec else 'scalar'} grid={plan.grid}")
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -148,44 +225,81 @@ def phase_kernels(ck, shapes) -> dict:
         max_err[x.dtype] = max(max_err[x.dtype], err.max().item())
         if not torch.isfinite(out).all() or bad.any():
             fail(f"fused_mat_norm vs plain at {label}: max |err| {err.max().item():.3g}")
+        return ck.forward_plan(x, g, b)
 
     launches_before = ck.fused_mat_norm.launches
-    step = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, instance_norm_ms=0.0)
+    step = dict(ms=0.0, wall_ms=0.0, plain_ms=0.0, bound_ms=0.0, instance_norm_ms=0.0)
+    split = False  # a main-path shape ran resident with k > 1
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         for (size, C), per_step in sorted(shapes.items()):
             for strided in (True, False):
                 x, g, b = mat_norm_inputs(BATCH, size, C, dtype, strided, seed=size * C)
-                check(x, g, b, f"B={BATCH} H=W={size} C={C} {name} strided={strided}")
+                plan = check(x, g, b, f"B={BATCH} H=W={size} C={C} {name} strided={strided}")
             x, g, b = mat_norm_inputs(BATCH, size, C, dtype, strided=True, seed=size * C)
-            ms = time_ms(lambda: ck.fused_mat_norm(x, g, b))
-            plain_ms = time_ms(lambda: ck.fused_mat_norm_plain(x, g, b))
+            plan = ck.forward_plan(x, g, b)
+            split |= plan.path == "resident" and plan.cluster > 1
+            ms = device_ms(lambda: ck.fused_mat_norm(x, g, b))
+            wall_ms = time_ms(lambda: ck.fused_mat_norm(x, g, b))
+            plain_ms = device_ms(lambda: ck.fused_mat_norm_plain(x, g, b))
             x_nchw = x.permute(0, 3, 1, 2)  # channels_last view, as the generator holds it
-            inorm_ms = time_ms(lambda: F.instance_norm(x_nchw, eps=1e-5))
+            inorm_ms = device_ms(lambda: F.instance_norm(x_nchw, eps=1e-5))
             bound_ms = 4 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
-            print(f"mat_norm {name} B={BATCH} H=W={size} C={C} x{per_step}/step: "
-                  f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-                  f"F.instance_norm {inorm_ms:.4f} ms  bound {bound_ms:.4f} ms")
+            us = host_us(lambda: ck.fused_mat_norm(x, g, b))
+            pr2 = (f" (PR 2 {PR2_SERVING_FWD_MS[(size, C)]:.4f})"
+                   if dtype == torch.bfloat16 else "")
+            print(f"mat_norm {name} B={BATCH} H=W={size} C={C} x{per_step}/step "
+                  f"[{plan_label(plan)}]: kernel {ms:.4f} ms, wall per call {wall_ms:.4f} ms"
+                  f"{pr2}, host {us:.1f} us/call  plain {plain_ms:.4f} ms  F.instance_norm "
+                  f"{inorm_ms:.4f} ms  bound {bound_ms:.4f} ms")
             if dtype == torch.bfloat16:  # the main path's working type
-                step["ms"] += per_step * ms
-                step["plain_ms"] += per_step * plain_ms
-                step["bound_ms"] += per_step * bound_ms
-                step["instance_norm_ms"] += per_step * inorm_ms
+                for key, v in dict(ms=ms, wall_ms=wall_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                   instance_norm_ms=inorm_ms).items():
+                    step[key] += per_step * v
+    if not split:
+        fail("no main-path shape ran the resident path split over a cluster")
 
-    # 100px chain (odd H·W), channel counts off the 8/32 grid, |mean| >> std
-    odd = [(7, 512), (13, 512), (13, 256), (25, 256), (25, 128), (50, 128), (50, 64),
-           (100, 64), (13, 12), (8, 100), (5, 40)]
+    # 100px chain (odd H·W); the scalar path (channel counts off the 32 grid)
+    odd = [(16, 7, 512), (16, 13, 512), (16, 13, 256), (16, 25, 256), (16, 25, 128),
+           (16, 50, 128), (16, 50, 64), (16, 100, 64)]
+    scalar_paths = set()
     for dtype in (torch.bfloat16, torch.float32):
-        for size, C in odd:
+        for batch, size, C in odd + list(SCALAR_SHAPES):
             for strided in (True, False):
-                x, g, b = mat_norm_inputs(16, size, C, dtype, strided, seed=size + C)
-                check(x, g, b, f"B=16 H=W={size} C={C} {dtype} strided={strided}")
-    for size in (4, 8):  # 256 + k/64 at a power-of-two H·W: exact two-pass statistics
+                x, g, b = mat_norm_inputs(batch, size, C, dtype, strided, seed=size + C)
+                plan = check(x, g, b, f"B={batch} H=W={size} C={C} {dtype} strided={strided}")
+                if (batch, size, C) in SCALAR_SHAPES:
+                    if plan.vec:
+                        fail(f"C={C} took the vector path: {plan_label(plan)}")
+                    scalar_paths.add((plan.path, plan.cluster > 1))
+    if scalar_paths != SCALAR_PATHS:
+        fail(f"the scalar forward ran {sorted(scalar_paths)}, not every path and split")
+    # the streaming path: 256² is too large for shared memory even split 8 ways
+    batch, size, C = STREAM_SHAPE
+    for dtype in (torch.bfloat16, torch.float32):
+        x, g, b = mat_norm_inputs(batch, size, C, dtype, strided=True, seed=size)
+        plan = check(x, g, b, f"B={batch} H=W={size} C={C} {dtype} (streaming)")
+        if plan.path != "streaming":
+            fail(f"{size}² x {C} did not take the streaming path: {plan_label(plan)}")
+        ms = device_ms(lambda: ck.fused_mat_norm(x, g, b))
+        bound_ms = 4 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+        print(f"mat_norm {dtype} B={batch} H=W={size} C={C} [{plan_label(plan)}]: kernel "
+              f"{ms:.4f} ms  bound {bound_ms:.4f} ms (off the main path)")
+    # |mean| >> std, offset + k/64 at a power-of-two H·W: exact two-pass
+    # statistics (every sum fits f32's 24 bits); 32² splits over a cluster,
+    # streaming at batch 2 and resident at batch 32, so the statistics meet
+    # across CTAs on both paths
+    split_paths = set()
+    for batch, size, offset in ((16, 4, 256.0), (16, 8, 256.0), (2, 32, 64.0), (32, 32, 64.0)):
         gen = torch.Generator(device="cuda").manual_seed(size)
-        k = torch.randint(-64, 65, (16, size, size, 64), device="cuda", generator=gen)
-        x = 256.0 + k.float() / 64.0
-        _, g, b = mat_norm_inputs(16, size, 64, torch.float32, strided=True)
-        check(x, g, b, f"|mean|>>std H=W={size}")
+        k = torch.randint(-64, 65, (batch, size, size, 64), device="cuda", generator=gen)
+        x = offset + k.float() / 64.0
+        _, g, b = mat_norm_inputs(batch, size, 64, torch.float32, strided=True)
+        plan = check(x, g, b, f"|mean|>>std B={batch} H=W={size} mean {offset}")
+        if plan.cluster > 1:
+            split_paths.add(plan.path)
+    if split_paths != {"resident", "streaming"}:
+        fail(f"|mean|>>std was split over a cluster only on {sorted(split_paths)}")
 
     if ck.fused_mat_norm.launches <= launches_before:
         fail("fused_mat_norm's launch counter did not move")
@@ -193,7 +307,8 @@ def phase_kernels(ck, shapes) -> dict:
           f"bf16 {max_err[torch.bfloat16]:.3g} (tolerance f32 atol {F32_TOL}, "
           f"bf16 rtol=atol {BF16_TOL})")
     print("mat_norm per 64px/ngf=64 step at batch 256 bf16 (13 norms): "
-          + ", ".join(f"{k} {v:.4f}" for k, v in step.items()))
+          + ", ".join(f"{k} {v:.4f}" for k, v in step.items())
+          + f"; PR 2 wall_ms {PR2_STEP_MS['serving_fwd']:.4f}")
     return dict(step, max_abs_err=max_err[torch.float32],
                 max_abs_err_bf16=max_err[torch.bfloat16])
 
@@ -355,6 +470,7 @@ def phase_backward(ck, shapes) -> dict:
     def check(batch, size, C, dtype, strided):
         label = f"B={batch} H=W={size} C={C} {dtype} strided={strided}"
         x, g, b, dy, mean, rstd = inputs(batch, size, C, dtype, strided, seed=size * C + 7)
+        plan = ck.backward_plan(dy, x, g)
         dx, dg = ck.fused_mat_norm_bwd(dy, x, g, mean, rstd)
         rdx, rdg = ck.fused_mat_norm_bwd_plain(dy, x, g, mean, rstd)
         rel_check(dx, rdx, dtype, f"fused_mat_norm_bwd dx at {label}")
@@ -365,11 +481,13 @@ def phase_backward(ck, shapes) -> dict:
         ref = torch.autograd.grad(ck.fused_mat_norm_plain(*leaves), leaves, dy)
         for name, a, r in zip(("dx", "dgamma", "dbeta"), got, ref):
             rel_check(a, r, dtype, f"FusedMATNorm {name} vs autograd(plain) at {label}")
+        return plan
 
     before = ck.fused_mat_norm_bwd.launches
-    step = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, instance_norm_bwd_ms=0.0,
-                fwd_ms=0.0, fwd_plain_ms=0.0, fwd_bound_ms=0.0)
-    step_f32 = dict(ms=0.0, bound_ms=0.0, fwd_ms=0.0, fwd_bound_ms=0.0)
+    step = dict(ms=0.0, wall_ms=0.0, plain_ms=0.0, bound_ms=0.0, instance_norm_bwd_ms=0.0,
+                fwd_ms=0.0, fwd_wall_ms=0.0, fwd_plain_ms=0.0, fwd_bound_ms=0.0)
+    step_f32 = dict(ms=0.0, wall_ms=0.0, bound_ms=0.0, fwd_ms=0.0, fwd_wall_ms=0.0,
+                    fwd_bound_ms=0.0)
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         for (size, C), per_step in sorted(shapes.items()):
@@ -377,10 +495,14 @@ def phase_backward(ck, shapes) -> dict:
                 check(TRAIN_BATCH, size, C, dtype, strided)
             # the module path's layout: γ and β separate conv outputs
             x, g, b, dy, mean, rstd = inputs(TRAIN_BATCH, size, C, dtype, False, seed=size + C)
-            ms = time_ms(lambda: ck.fused_mat_norm_bwd(dy, x, g, mean, rstd))
-            plain_ms = time_ms(lambda: ck.fused_mat_norm_bwd_plain(dy, x, g, mean, rstd))
-            fwd_ms = time_ms(lambda: ck._launch_forward(x, g, b, 1e-5, True))
-            fwd_plain_ms = time_ms(lambda: ck._plain_forward(x, g, b, 1e-5))
+            plan, fwd_plan = ck.backward_plan(dy, x, g), ck.forward_plan(x, g, b)
+            ms = device_ms(lambda: ck.fused_mat_norm_bwd(dy, x, g, mean, rstd))
+            wall_ms = time_ms(lambda: ck.fused_mat_norm_bwd(dy, x, g, mean, rstd))
+            us = host_us(lambda: ck.fused_mat_norm_bwd(dy, x, g, mean, rstd))
+            plain_ms = device_ms(lambda: ck.fused_mat_norm_bwd_plain(dy, x, g, mean, rstd))
+            fwd_ms = device_ms(lambda: ck._launch_forward(x, g, b, 1e-5, True))
+            fwd_wall_ms = time_ms(lambda: ck._launch_forward(x, g, b, 1e-5, True))
+            fwd_plain_ms = device_ms(lambda: ck._plain_forward(x, g, b, 1e-5))
             xr = x.permute(0, 3, 1, 2).detach().requires_grad_()
             y = F.instance_norm(xr, eps=1e-5)
             dyr = dy.permute(0, 3, 1, 2)
@@ -388,21 +510,37 @@ def phase_backward(ck, shapes) -> dict:
             nbytes = x.numel() * x.element_size()
             bound_ms = 5 * nbytes / HBM_BYTES_PER_S * 1e3
             fwd_bound_ms = 4 * nbytes / HBM_BYTES_PER_S * 1e3
-            print(f"mat_norm_bwd {name} B={TRAIN_BATCH} H=W={size} C={C} x{per_step}/step: "
-                  f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-                  f"F.instance_norm backward {inorm_ms:.4f} ms  bound {bound_ms:.4f} ms  "
-                  f"| forward kernel {fwd_ms:.4f} ms  plain {fwd_plain_ms:.4f} ms  "
+            bf16 = dtype == torch.bfloat16
+            pr2 = f" (PR 2 {PR2_TRAIN_BWD_MS[(size, C)]:.4f})" if bf16 else ""
+            pr2_fwd = f" (PR 2 {PR2_TRAIN_FWD_MS[(size, C)]:.4f})" if bf16 else ""
+            print(f"mat_norm_bwd {name} B={TRAIN_BATCH} H=W={size} C={C} x{per_step}/step "
+                  f"[{plan_label(plan)}]: kernel {ms:.4f} ms, wall per call {wall_ms:.4f} ms"
+                  f"{pr2}, host {us:.1f} us/call  plain {plain_ms:.4f} ms  F.instance_norm "
+                  f"backward (wall) {inorm_ms:.4f} ms  bound {bound_ms:.4f} ms | forward "
+                  f"[{plan_label(fwd_plan)}] kernel {fwd_ms:.4f} ms, wall per call "
+                  f"{fwd_wall_ms:.4f} ms{pr2_fwd}  plain {fwd_plain_ms:.4f} ms  "
                   f"bound {fwd_bound_ms:.4f} ms")
             acc = step if dtype == torch.bfloat16 else step_f32
-            for k, v in dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            for k, v in dict(ms=ms, wall_ms=wall_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              instance_norm_bwd_ms=inorm_ms, fwd_ms=fwd_ms,
-                             fwd_plain_ms=fwd_plain_ms, fwd_bound_ms=fwd_bound_ms).items():
+                             fwd_wall_ms=fwd_wall_ms, fwd_plain_ms=fwd_plain_ms,
+                             fwd_bound_ms=fwd_bound_ms).items():
                 if k in acc:
                     acc[k] += per_step * v
-    for dtype in (torch.bfloat16, torch.float32):  # channel counts off the 32 grid
-        for size, C in ((13, 12), (8, 100), (5, 40)):
+    scalar_paths = set()
+    for dtype in (torch.bfloat16, torch.float32):  # the scalar path: C off the 32 grid
+        for batch, size, C in SCALAR_SHAPES:
             for strided in (False, True):
-                check(3, size, C, dtype, strided)
+                plan = check(batch, size, C, dtype, strided)
+                if plan.vec:
+                    fail(f"backward at C={C} took the vector path: {plan_label(plan)}")
+                scalar_paths.add((plan.path, plan.cluster > 1))
+        batch, size, C = STREAM_SHAPE  # the streaming path
+        plan = check(batch, size, C, dtype, strided=True)
+        if plan.path != "streaming":
+            fail(f"backward at {size}² x {C} did not stream: {plan_label(plan)}")
+    if scalar_paths != SCALAR_PATHS:
+        fail(f"the scalar backward ran {sorted(scalar_paths)}, not every path and split")
     if ck.fused_mat_norm_bwd.launches <= before:
         fail("fused_mat_norm_bwd's launch counter did not move")
     print(f"mat_norm_bwd max |kernel - plain|: f32 {max_err[torch.float32]:.3g}, bf16 "
@@ -410,9 +548,208 @@ def phase_backward(ck, shapes) -> dict:
           f"{BWD_BF16_TOL}, of max |plain|)")
     print("mat_norm per 100px/ngf=64 train step at batch 16 (13 norms each way): bf16 "
           + ", ".join(f"{k} {v:.4f}" for k, v in step.items()) + "; f32 "
-          + ", ".join(f"{k} {v:.4f}" for k, v in step_f32.items()))
+          + ", ".join(f"{k} {v:.4f}" for k, v in step_f32.items())
+          + "; PR 2 wall_ms " + ", ".join(f"{k} {v:.4f}" for k, v in PR2_STEP_MS.items()
+                                      if k.startswith("train")))
     return dict(step, f32=step_f32, max_abs_err=max_err[torch.float32],
                 max_abs_err_bf16=max_err[torch.bfloat16])
+
+
+def phase_ab(ck, other_dir: str, card: str) -> None:
+    """This checkout's MAT-norm kernels against another checkout's (``--ab
+    DIR``, e.g. ``git archive`` of a parent commit unpacked under build/),
+    on one card, in turns (other, this, this, other), in bf16: the forward
+    at every norm shape of the serving step (batch 256, 64px, γ/β strided
+    halves of γ‖β), and the forward (saving the statistics) and the
+    backward at every shape of the training step (batch 16, 100px, γ and β
+    separate). Each side's kernel ms (device, CUDA graph replay), wall ms
+    per call and host µs per call are the means over its two turns."""
+    import importlib.util
+
+    import torch
+
+    from s2p_tpu_torch.gan import S2PGenerator
+
+    path = os.path.join(other_dir, "s2p_tpu_torch", "gan", "cuda_kernels.py")
+    spec = importlib.util.spec_from_file_location("other_cuda_kernels", path)
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    other.load_library()
+    sides = dict(other=other, this=ck)
+
+    def train_inputs(size, C):
+        x, g, b = mat_norm_inputs(TRAIN_BATCH, size, C, torch.bfloat16, False, mean=0.5,
+                                  seed=size + C)
+        dy = torch.randn(x.shape, device="cuda").to(torch.bfloat16)
+        _, mean, rstd = ck._plain_forward(x, g, b, 1e-5)
+        return x, g, b, dy, mean.float().contiguous(), rstd.float().contiguous()
+
+    cases = []  # (path, (H, C), launches per step, inputs, call(module, inputs))
+    serving = norm_shapes(S2PGenerator(STATE_DIM, seed=0, device="cpu", **FULL))
+    for (size, C), n in sorted(serving.items()):
+        cases.append(("serving fwd", (size, C), n,
+                      lambda size=size, C=C: mat_norm_inputs(BATCH, size, C, torch.bfloat16,
+                                                             True, seed=size * C),
+                      lambda m, t: m.fused_mat_norm(*t)))
+    training = norm_shapes(S2PGenerator(STATE_DIM, image_size=TRAIN_SIZE, ngf=64, device="cpu"))
+    for (size, C), n in sorted(training.items()):
+        make = lambda size=size, C=C: train_inputs(size, C)
+        cases.append(("train fwd", (size, C), n, make,
+                      lambda m, t: m._launch_forward(t[0], t[1], t[2], 1e-5, True)))
+        cases.append(("train bwd", (size, C), n, make,
+                      lambda m, t: m.fused_mat_norm_bwd(t[3], t[0], t[1], t[4], t[5])))
+
+    totals: dict = {}
+    for path, (size, C), n, make, call in cases:
+        t = make()
+        got = {side: [] for side in sides}
+        for side in ("other", "this", "this", "other"):
+            fn = lambda m=sides[side]: call(m, t)
+            got[side].append((device_ms(fn), time_ms(fn), host_us(fn)))
+        mean = {side: [sum(v) / len(v) for v in zip(*runs)] for side, runs in got.items()}
+        for side, (ms, wall, us) in mean.items():
+            acc = totals.setdefault((path, side), [0.0, 0.0])
+            acc[0] += n * ms
+            acc[1] += n * wall
+        (o_ms, o_wall, o_us), (t_ms, t_wall, t_us) = mean["other"], mean["this"]
+        print(f"ab {path} H=W={size} C={C} x{n}/step: kernel other {o_ms:.4f} this {t_ms:.4f} "
+              f"ms ({t_ms / o_ms:.3f}x); wall per call other {o_wall:.4f} this {t_wall:.4f} ms "
+              f"({t_wall / o_wall:.3f}x); host other {o_us:.1f} this {t_us:.1f} us/call")
+    for path in ("serving fwd", "train fwd", "train bwd"):
+        (o_ms, o_wall), (t_ms, t_wall) = totals[(path, "other")], totals[(path, "this")]
+        print(f"ab {path} per step (13 norms): kernel other {o_ms:.4f} this {t_ms:.4f} ms; "
+              f"wall other {o_wall:.4f} this {t_wall:.4f} ms; on {card}")
+
+    # the main paths end to end: each side's package in a process of its own
+    # (two packages of one name cannot share a process), in turns
+    here = os.path.dirname(os.path.abspath(__file__))
+    paths = {side: [] for side in sides}
+    for side in ("other", "this", "this", "other") * 2:
+        root = os.path.abspath(other_dir) if side == "other" else here
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-paths", root],
+                             capture_output=True, text=True, timeout=900)
+        if run.returncode != 0:
+            fail(f"--time-paths {root} exited {run.returncode}:\n{run.stderr[-3000:]}")
+        paths[side].append(json.loads(run.stdout.strip().splitlines()[-1]))
+        print(f"ab paths {side}: " + ", ".join(f"{k} {v:.4f}" for k, v in paths[side][-1].items()))
+    for key in paths["this"][0]:
+        o, t = ([r[key] for r in paths[side]] for side in ("other", "this"))
+        print(f"ab paths {key}: other {sum(o) / len(o):.4f} (runs {', '.join(f'{v:.4f}' for v in o)})"
+              f"; this {sum(t) / len(t):.4f} (runs {', '.join(f'{v:.4f}' for v in t)}); ratio "
+              f"{sum(t) / sum(o):.3f}; on {card}")
+
+
+def time_paths() -> dict:
+    """The two main paths end to end, as phases 5 and 8 time them but
+    without their checks, for the ``s2p_tpu_torch`` first on ``sys.path``:
+    serving frames/sec (bf16, batch 256 × seq_len 8) and ms per
+    ``train_step`` (batch 16, bf16 and f32). One side of ``--ab``."""
+    import numpy as np
+    import torch
+
+    from s2p_tpu_torch.gan import S2PGenerator, generate_rollout_fast
+
+    gen = S2PGenerator(STATE_DIM, seed=0, device="cpu", **FULL).to("cuda").to(torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    states = torch.randn(SEQ_LEN, BATCH, STATE_DIM, device="cuda", generator=g).bfloat16()
+    init = (torch.rand(BATCH, 64, 64, 3, device="cuda", generator=g) * 2 - 1).bfloat16()
+    for _ in range(2):
+        generate_rollout_fast(gen, init, states)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_ROLLOUTS):
+        generate_rollout_fast(gen, init, states)
+    torch.cuda.synchronize()
+    result = dict(frames_per_s=BATCH * SEQ_LEN * TIMED_ROLLOUTS / (time.perf_counter() - t0))
+    del gen
+
+    torch.backends.cudnn.allow_tf32 = True  # as phase 8
+    batches = list(synthetic_pairs(512, seed=12).batches(TRAIN_BATCH, np.random.RandomState(0)))
+    for dtype in (torch.bfloat16, torch.float32):
+        trainer = make_trainer("cuda", dtype)
+        for b in batches[:2]:
+            trainer.train_step(b)
+        torch.cuda.synchronize()
+        trainer.g_step = trainer.d_step = 0
+        t0 = time.perf_counter()
+        for i in range(TIMED_STEPS):
+            trainer.train_step(batches[i % len(batches)])
+        torch.cuda.synchronize()
+        name = str(dtype).split(".")[-1]
+        result[f"train_step_ms_{name}"] = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+        del trainer
+    return result
+
+
+def launch_plan(ck, plan, x, g, b, dy=None, mean=None, rstd=None) -> None:
+    """One launch of a MAT-norm kernel with ``plan`` in place of the one
+    ``mat_norm_plan`` picks, straight through the library's C entry points
+    (the wrappers take no plan): the forward when ``dy`` is None (writing
+    the statistics into ``mean``/``rstd`` when given), else the backward."""
+    import torch
+
+    lib, (B, H, W, C) = ck.load_library(), x.shape
+    dtype, stream = ck._DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream
+    out, g_strides = torch.empty_like(x), ck._batch_pixel_strides(g, "gamma")
+    if dy is None:
+        err = lib.s2p_fused_mat_norm(
+            x.data_ptr(), g.data_ptr(), b.data_ptr(), out.data_ptr(),
+            None if mean is None else mean.data_ptr(), None if rstd is None else rstd.data_ptr(),
+            B, H * W, C, *g_strides, *ck._batch_pixel_strides(b, "beta"), dtype, 1e-5,
+            *ck._plan_args(plan), stream)
+    else:
+        err = lib.s2p_fused_mat_norm_bwd(
+            dy.data_ptr(), x.data_ptr(), g.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            out.data_ptr(), torch.empty_like(x).data_ptr(), B, H * W, C, *g_strides, dtype,
+            *ck._plan_args(plan), stream)
+    if err:
+        fail(f"MAT-norm launch with {plan_label(plan)}: cudaError {err}")
+
+
+def phase_sweep(ck, card: str) -> None:
+    """Every plan variant (channel tile × cluster size, resident where the
+    slice fits and streaming) of the MAT-norm kernels at every bf16
+    main-path shape (serving forward at batch 256 with strided γ/β; training
+    forward and backward at batch 16), kernel ms by CUDA-graph replay,
+    beside the plan ``mat_norm_plan`` picks."""
+    import torch
+
+    from s2p_tpu_torch.gan import S2PGenerator
+
+    bf16 = torch.bfloat16
+    gens = dict(serving=(BATCH, S2PGenerator(STATE_DIM, seed=0, device="cpu", **FULL)),
+                train=(TRAIN_BATCH, S2PGenerator(STATE_DIM, image_size=TRAIN_SIZE, ngf=64,
+                                                 device="cpu")))
+    for name, (batch, gen) in gens.items():
+        for (size, C), n in sorted(norm_shapes(gen).items()):
+            x, g, b = mat_norm_inputs(batch, size, C, bf16, name == "serving", mean=0.5)
+            dy = torch.randn(x.shape, device="cuda").to(bf16)
+            _, mean, rstd = ck._plain_forward(x, g, b, 1e-5)
+            mean, rstd = mean.float().contiguous(), rstd.float().contiguous()
+            saved = (mean, rstd) if name == "train" else (None, None)  # as the wrappers do
+            calls = dict(forward=lambda p: launch_plan(ck, p, x, g, b, None, *saved),
+                         backward=lambda p: launch_plan(ck, p, x, g, b, dy, mean, rstd))
+            for direction, call in calls.items():
+                if name == "serving" and direction == "backward":
+                    continue
+                chosen = ck.mat_norm_plan(batch, size * size, C, bf16, direction, True)
+                times = {}
+                for tile_c in ck.plan_tiles(C, bf16, True):
+                    for k in ck.CLUSTER_SIZES:
+                        plan = ck.plan_variant(batch, size * size, C, bf16, direction, True,
+                                               tile_c, k)
+                        times[plan] = device_ms(lambda: call(plan))
+                        if plan.path == "resident":  # the same split, streaming
+                            stream = ck.plan_variant(batch, size * size, C, bf16, direction,
+                                                     True, tile_c, k, resident=False)
+                            times[stream] = device_ms(lambda: call(stream))
+                best = min(times, key=times.get)
+                print(f"sweep {name} {direction} B={batch} H=W={size} C={C} x{n}/step: plan "
+                      f"[{plan_label(chosen)}] {times[chosen]:.4f} ms; best [{plan_label(best)}] "
+                      f"{times[best]:.4f} ms; all: " + ", ".join(
+                          f"{p.tile_c}/{p.cluster}{'' if p.path == 'resident' else 's'} "
+                          f"{ms:.4f}" for p, ms in times.items()))
+    print(f"sweep on {card}")
 
 
 def make_trainer(device, compute_dtype, d_lr=4e-4):
@@ -586,7 +923,21 @@ def main() -> None:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="also write a torch.profiler summary of one rollout to DIR")
+    ap.add_argument("--ab", default=None, metavar="DIR",
+                    help="only build and time the MAT-norm kernels against those of the "
+                         "checkout in DIR, in turns, and stop (no result line)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="only build and time every launch plan of the MAT-norm kernels at "
+                         "the main-path shapes, and stop (no result line)")
+    ap.add_argument("--time-paths", default=None, metavar="ROOT",
+                    help="only time the two main paths end to end with the s2p_tpu_torch "
+                         "of the checkout in ROOT and print them as JSON (one side of --ab)")
     args = ap.parse_args()
+
+    if args.time_paths:
+        sys.path.insert(0, os.path.abspath(args.time_paths))
+        print(json.dumps(time_paths()))
+        return
 
     import torch
 
@@ -606,6 +957,13 @@ def main() -> None:
     t0 = time.time()
     ck.load_library()
     print(f"build: fused_mat_norm ({ck.SOURCE.name}) built and loaded in {time.time() - t0:.1f} s")
+
+    if args.ab:
+        phase_ab(ck, args.ab, card)
+    if args.sweep:
+        phase_sweep(ck, card)
+    if args.ab or args.sweep:
+        return
 
     # phase 3: kernels vs plain (the shapes come from the full-width generator)
     torch.backends.cudnn.allow_tf32 = False
@@ -638,12 +996,16 @@ def main() -> None:
         launches_by_path=dict(serving=serving, training=training["fwd"]),
         max_abs_err=stats["max_abs_err"], max_abs_err_bf16=stats["max_abs_err_bf16"],
         ms=stats["ms"], plain_ms=stats["plain_ms"], bound_ms=stats["bound_ms"],
-        bound_by="bytes", library_ms=None, instance_norm_ms=stats["instance_norm_ms"],
-        train_step_ms=bwd["fwd_ms"], train_step_plain_ms=bwd["fwd_plain_ms"],
-        train_step_bound_ms=bwd["fwd_bound_ms"],
+        bound_by="bytes", library_ms=None,
+        wall_ms=stats["wall_ms"], instance_norm_ms=stats["instance_norm_ms"],
+        train_step_ms=bwd["fwd_ms"], train_step_wall_ms=bwd["fwd_wall_ms"],
+        train_step_plain_ms=bwd["fwd_plain_ms"], train_step_bound_ms=bwd["fwd_bound_ms"],
         per="ms/plain_ms/bound_ms: one 64px/ngf=64 generator step at batch 256 in bf16 "
             "(13 norms); train_step_*: the 13 norms of a 100px/ngf=64 train step at batch "
-            "16 in bf16; instance_norm_ms is F.instance_norm alone, a partial yardstick",
+            "16 in bf16; ms, plain_ms: device time (CUDA graph replay), where the records "
+            "of PR 1 and PR 2 gave wall time per call as ms, so ms is not comparable with "
+            "theirs; wall_ms: wall time per wrapper call in a loop, host included, as they "
+            "timed ms; instance_norm_ms is F.instance_norm alone, a partial yardstick",
     )
     bwd_record = dict(
         name="fused_mat_norm_bwd", route="cuda", source="s2p_tpu_torch/csrc/fused_mat_norm.cu",
@@ -651,11 +1013,14 @@ def main() -> None:
         launches_by_path=dict(serving=0, training=training["bwd"]),
         max_abs_err=bwd["max_abs_err"], max_abs_err_bf16=bwd["max_abs_err_bf16"],
         ms=bwd["ms"], plain_ms=bwd["plain_ms"], bound_ms=bwd["bound_ms"], bound_by="bytes",
-        library_ms=None, instance_norm_bwd_ms=bwd["instance_norm_bwd_ms"],
+        library_ms=None, wall_ms=bwd["wall_ms"],
+        instance_norm_bwd_ms=bwd["instance_norm_bwd_ms"],
         per="the gradient of fused_mat_norm (the JAX package has no backward kernel: XLA "
             "differentiates the plain norm); one 100px/ngf=64 train step at batch 16 in "
-            "bf16 (13 norms); instance_norm_bwd_ms is the autograd backward of "
-            "F.instance_norm alone, a partial yardstick",
+            "bf16 (13 norms); ms, plain_ms: device time (CUDA graph replay), where PR 2's "
+            "record gave wall time per call as ms, so ms is not comparable with it; "
+            "wall_ms: wall time per call, as PR 2 timed ms; instance_norm_bwd_ms is the "
+            "autograd backward of F.instance_norm alone (wall per call), a partial yardstick",
     )
     print(json.dumps({"kernels": [fwd_record, bwd_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,14 +1,42 @@
 """Hand-written CUDA kernels of the generator, with their plain versions.
 
 ``fused_mat_norm`` is the port of ``s2p_tpu/gan/pallas_kernels.py::
-fused_mat_norm``: per-(image, channel) instance-norm statistics over H·W
-plus the MAT modulation ``·(1+γ)+β`` in one kernel. It always runs through
-``FusedMATNorm``, an autograd Function whose backward is a kernel too
-(``fused_mat_norm_bwd``). The source of both is
-``s2p_tpu_torch/csrc/fused_mat_norm.cu`` (its header states the design and
-the bounds). On a CUDA tensor each direction launches its kernel or raises;
-on a CPU tensor it runs its plain version (``fused_mat_norm_plain``,
-``fused_mat_norm_bwd_plain``). There is no other path.
+fused_mat_norm`` (the TPU kernel, ``pl.pallas_call`` at l.78): per-(image,
+channel) instance-norm statistics over H·W plus the MAT modulation
+``·(1+γ)+β`` in one kernel. It always runs through ``FusedMATNorm``, an
+autograd Function whose backward is a kernel too (``fused_mat_norm_bwd``).
+The source of both is ``s2p_tpu_torch/csrc/fused_mat_norm.cu``. On a CUDA
+tensor each direction launches its kernel or raises; on a CPU tensor it
+runs its plain version (``fused_mat_norm_plain``, ``fused_mat_norm_bwd_plain``).
+There is no other path.
+
+Both kernels are bound by bytes (~10 flops per byte against the card's
+~295): the forward must move 4 elements per entry of B·H·W·C (read x, γ,
+β, write out), the backward 5 (read dy, x, γ, write dx, dγ).
+``mat_norm_plan`` chooses, from the shapes, strides and alignment and
+before the launch, how a launch meets that bound:
+
+- occupancy: the H·W pixels of one (image, channel tile) are split over a
+  thread block cluster of k ∈ {1, 2, 4, 8} CTAs, whose partial sums meet in
+  distributed shared memory; on images of ≥ 1024 pixels k rises until the
+  grid reaches about two CTAs per SM while each CTA keeps ≥ 256 pixels (the
+  50² and 100² training shapes: ≥ 256 CTAs from 16 images); smaller images
+  (25² and below) are split only where their slice would not fit
+  otherwise, and reach about one CTA per SM with a narrower channel tile
+  instead, since there a cluster launch and its barriers cost more than
+  the CTAs it adds;
+- re-reads: on the ``resident`` path each CTA holds its slice of x (the
+  backward: x and dy) in shared memory, ≤ 100 KB so that two CTAs fit on
+  an SM, loaded once with 16-byte ``cp.async``; every pass reads it there,
+  so x leaves HBM once instead of three times. The ``streaming`` path is
+  the same kernel reading x from global memory in each pass: it takes a
+  slice that does not fit even at k = 8 (256² images and up), and a launch
+  whose x (and dy) total ≤ 4 MiB, whose re-reads meet L2 and for which the
+  copy into shared memory and its barrier cost more than they save;
+- load width: 16-byte loads and stores (8 bf16 or 4 f32 channels a
+  thread) when C is a multiple of 32 and every base pointer and stride is
+  16-byte aligned; otherwise a scalar variant of the same kernel (e.g. β =
+  ``gb[..., 12:]`` with C = 12).
 
 The kernel is compiled by ``nvcc`` for ``sm_90a`` at first use into
 ``build/s2p_tpu_torch/`` beside the package, named by the hash of its source
@@ -23,6 +51,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
@@ -34,6 +63,17 @@ BUILD_DIR = _PKG.parent / "build" / "s2p_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the launch plan (chip_smoke.py --sweep times every plan at the main-path shapes)
+TARGET_CTAS = 256  # about two CTAs per SM (132 on the H100 SXM)
+WAVE_CTAS = 128  # about one CTA per SM: the target of an image too small to split
+CLUSTER_SIZES = (1, 2, 4, 8)  # 8: the portable cluster limit
+RESIDENT_BYTES = 100 * 1024  # a slice this small lets two CTAs share an SM
+SPLIT_MIN_HW = 1024  # smaller images are split over a cluster only to fit
+MIN_SPLIT_PIXELS = 256  # a cluster split for occupancy leaves each CTA this many pixels
+STREAM_BYTES = 4 << 20  # a launch whose x (and dy) total this or less streams from L2
+CTA_THREADS = 256  # threads of a CTA (kThreads in the .cu)
+SCRATCH_BYTES_PER_CHANNEL = 88  # f32 reduction scratch, kScratchFloats in the .cu
 
 
 def _nvcc() -> str:
@@ -73,11 +113,11 @@ def load_library() -> ctypes.CDLL:
     fwd = lib.s2p_fused_mat_norm
     fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                     + [ctypes.c_longlong] * 4
-                    + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+                    + [ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fwd.restype = ctypes.c_int
     bwd = lib.s2p_fused_mat_norm_bwd
     bwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                    + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
+                    + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     bwd.restype = ctypes.c_int
     return lib
 
@@ -126,19 +166,140 @@ def _batch_pixel_strides(t: torch.Tensor, name: str) -> tuple[int, int]:
     """(batch stride, pixel stride) of an NHWC tensor whose channels are
     unit-stride and whose H and W collapse into one strided pixel axis."""
     _, H, W, C = t.shape
-    if C > 1 and t.stride(3) != 1:
+    s_b, s_h, s_w, s_c = t.stride()
+    if C > 1 and s_c != 1:
         raise ValueError(f"{name}: channels must be unit-stride, got strides {t.stride()}")
-    if H > 1 and W > 1 and t.stride(1) != W * t.stride(2):
+    if H > 1 and W > 1 and s_h != W * s_w:
         raise ValueError(f"{name}: H and W must form one strided pixel axis, "
                          f"got strides {t.stride()}")
-    pixel = t.stride(2) if W > 1 else t.stride(1)
-    return t.stride(0), pixel
+    return s_b, s_w if W > 1 else s_h
 
 
 def _check(name: str, t: torch.Tensor, x: torch.Tensor) -> None:
     if t.device != x.device or t.dtype != x.dtype or t.shape != x.shape:
         raise ValueError(f"fused_mat_norm: {name} is {t.dtype} {tuple(t.shape)} on "
                          f"{t.device}, x is {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+@dataclass(frozen=True)
+class MATNormPlan:
+    """How one MAT-norm launch covers its tensors (see the module docstring)."""
+    tile_c: int  # channels of one (image, channel tile)
+    cluster: int  # CTAs per (image, channel tile): the cluster size k
+    pixels_per_cta: int  # contiguous pixels of each CTA (the last ones may run short)
+    smem: int  # dynamic shared memory per CTA, bytes: the slice plus the scratch
+    path: str  # "resident" (slice in shared memory) or "streaming"
+    vec: bool  # 16-byte loads and stores
+    grid: int  # CTAs launched: B · channel tiles · k
+
+
+def plan_variant(batch: int, hw: int, C: int, dtype: torch.dtype, direction: str,
+                 vec: bool, tile_c: int, cluster: int, resident: bool = True) -> MATNormPlan:
+    """The plan of one channel tile and cluster size: ``resident`` when
+    asked for and the slice fits in ``RESIDENT_BYTES``, else ``streaming``."""
+    arrays = 1 if direction == "forward" else 2
+    ppc = -(-hw // cluster)
+    slice_bytes = arrays * ppc * tile_c * dtype.itemsize
+    resident = resident and slice_bytes <= RESIDENT_BYTES
+    return MATNormPlan(
+        tile_c=tile_c, cluster=cluster, pixels_per_cta=ppc,
+        smem=(slice_bytes if resident else 0) + SCRATCH_BYTES_PER_CHANNEL * tile_c,
+        path="resident" if resident else "streaming", vec=vec,
+        grid=batch * -(-C // tile_c) * cluster)
+
+
+def plan_tiles(C: int, dtype: torch.dtype, vec: bool) -> list:
+    """The channel tiles a launch may take, widest first: 8, 4 or 2
+    sixteen-byte lanes on the vector path, 32 channels on the scalar one."""
+    width = 16 // dtype.itemsize
+    return [lanes * width for lanes in (8, 4, 2) if C % (lanes * width) == 0] if vec else [32]
+
+
+@functools.cache
+def mat_norm_plan(batch: int, hw: int, C: int, dtype: torch.dtype, direction: str,
+                  vec_ok: bool) -> MATNormPlan:
+    """The launch plan of one MAT-norm kernel call: ``direction`` is
+    "forward" (x resident) or "backward" (x and dy resident); ``vec_ok``
+    says that every base pointer and batch/pixel stride is 16-byte aligned.
+
+    A launch whose x (and dy) total at most ``STREAM_BYTES`` streams.
+    Otherwise each channel tile (``plan_tiles``) gets the smallest cluster
+    whose slice fits in ``RESIDENT_BYTES``. On an image of at least
+    ``SPLIT_MIN_HW`` pixels k is then raised (for occupancy) until the grid
+    reaches ``TARGET_CTAS`` or a CTA would get fewer than
+    ``MIN_SPLIT_PIXELS`` pixels; a smaller image aims at ``WAVE_CTAS``
+    with its tile alone. A tile narrower than the widest is dropped when it
+    leaves a thread fewer than two vectors per pass. The plan is the widest
+    resident tile that reaches the aim (on a small image: of those with
+    the smallest cluster), else the resident tile with the largest grid;
+    ``streaming`` also when no tile fits at k = 8. More CTAs
+    or clusters than that cost the small shapes more than they give (a
+    cluster launch and its barriers, CTAs with little work each):
+    ``chip_smoke.py --sweep`` times every plan."""
+    if direction not in ("forward", "backward"):
+        raise ValueError(f"mat_norm_plan: direction {direction!r}")
+    vec = vec_ok and C % 32 == 0  # whole tiles: no channel mask on the vector path
+    width = 16 // dtype.itemsize if vec else 1
+    arrays = 1 if direction == "forward" else 2
+    resident = arrays * batch * hw * C * dtype.itemsize > STREAM_BYTES
+    split = hw >= SPLIT_MIN_HW
+    aim = TARGET_CTAS if split else WAVE_CTAS
+    options = []
+    for tile_c in plan_tiles(C, dtype, vec):
+        fits = [k for k in CLUSTER_SIZES if plan_variant(
+            batch, hw, C, dtype, direction, vec, tile_c, k, resident).path == "resident"]
+        k = fits[0] if fits else 1
+        while (split and k < CLUSTER_SIZES[-1] and batch * -(-C // tile_c) * k < aim
+               and -(-hw // (2 * k)) >= MIN_SPLIT_PIXELS):
+            k *= 2
+        if options and -(-hw // k) * (tile_c // width) < 2 * CTA_THREADS:
+            continue  # narrower than the widest tile and leaves threads nearly idle
+        options.append(plan_variant(batch, hw, C, dtype, direction, vec, tile_c, k, resident))
+    pool = [o for o in options if o.path == "resident"] or options
+    if not split:  # a cluster costs a small image more than a narrower tile
+        pool.sort(key=lambda o: o.cluster)  # stable: the widest tile first within one k
+    return next((o for o in pool if o.grid >= aim), max(pool, key=lambda o: o.grid))
+
+
+def _plan(direction: str, x: torch.Tensor, tensors: tuple, strides: tuple) -> MATNormPlan:
+    """``mat_norm_plan`` for x's shape, with the vector path allowed when
+    every base pointer and element stride is 16-byte aligned."""
+    B, H, W, C = x.shape
+    bits = 0
+    for t in tensors:
+        bits |= t.data_ptr()
+    for s in strides:
+        bits |= s * x.element_size()
+    return mat_norm_plan(B, H * W, C, x.dtype, direction, bits % 16 == 0)
+
+
+def forward_plan(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> MATNormPlan:
+    """The plan the forward kernel runs for these tensors."""
+    strides = _batch_pixel_strides(gamma, "gamma") + _batch_pixel_strides(beta, "beta")
+    return _plan("forward", x, (x, gamma, beta), strides)
+
+
+def backward_plan(dy: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor) -> MATNormPlan:
+    """The plan the backward kernel runs for these tensors (dy contiguous)."""
+    return _plan("backward", x, (dy, x, gamma), _batch_pixel_strides(gamma, "gamma"))
+
+
+def _plan_args(plan: MATNormPlan) -> tuple:
+    """The plan as the C entry points take it."""
+    return (plan.tile_c, plan.cluster, plan.pixels_per_cta, int(plan.path == "resident"),
+            int(plan.vec), plan.smem)
+
+
+def _on_stream(x: torch.Tensor, entry, *args) -> int:
+    """``entry(*args, stream)`` on x's device and its current stream; returns
+    the launch's cudaError_t. The raw stream handle is read without building
+    a ``torch.cuda.Stream`` object, which costs a small launch more host time
+    than its kernel takes on the card."""
+    dev = x.device.index
+    if dev != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _on_stream(x, entry, *args)
+    return entry(*args, torch._C._cuda_getCurrentRawStream(dev))
 
 
 def _launch_forward(x, gamma, beta, eps, save):
@@ -157,15 +318,15 @@ def _launch_forward(x, gamma, beta, eps, save):
     out = torch.empty_like(x)
     mean = rstd = None
     if save:
-        mean, rstd = torch.empty(2, B, C, device=x.device, dtype=torch.float32)
+        mean = torch.empty(B, C, device=x.device, dtype=torch.float32)
+        rstd = torch.empty_like(mean)
     if out.numel() == 0:
         return out, mean, rstd
-    with torch.cuda.device(x.device):
-        err = load_library().s2p_fused_mat_norm(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            mean.data_ptr() if save else None, rstd.data_ptr() if save else None,
-            B, H * W, C, g_b, g_p, b_b, b_p, _DTYPES[x.dtype], eps,
-            torch.cuda.current_stream().cuda_stream)
+    plan = _plan("forward", x, (x, gamma, beta), (g_b, g_p, b_b, b_p))
+    err = _on_stream(x, load_library().s2p_fused_mat_norm,
+                     x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+                     mean.data_ptr() if save else None, rstd.data_ptr() if save else None,
+                     B, H * W, C, g_b, g_p, b_b, b_p, _DTYPES[x.dtype], eps, *_plan_args(plan))
     if err != 0:
         raise RuntimeError(f"fused_mat_norm: kernel launch failed with cudaError {err}")
     fused_mat_norm.launches += 1
@@ -181,6 +342,11 @@ def fused_mat_norm_bwd(dy: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
         return fused_mat_norm_bwd_plain(dy, x, gamma, mean, rstd)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mat_norm_bwd: unsupported device {x.device}")
+    return _launch_backward(dy, x, gamma, mean, rstd)
+
+
+def _launch_backward(dy, x, gamma, mean, rstd):
+    """The backward kernel: (dx, dγ)."""
     _check("dy", dy, x)
     _check("gamma", gamma, x)
     if x.dtype not in _DTYPES or not x.is_contiguous():
@@ -196,11 +362,11 @@ def fused_mat_norm_bwd(dy: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
     dx, dgamma = torch.empty_like(x), torch.empty_like(x)
     if x.numel() == 0:
         return dx, dgamma
-    with torch.cuda.device(x.device):
-        err = load_library().s2p_fused_mat_norm_bwd(
-            dy.data_ptr(), x.data_ptr(), gamma.data_ptr(), mean.data_ptr(),
-            rstd.data_ptr(), dx.data_ptr(), dgamma.data_ptr(), B, H * W, C, g_b, g_p,
-            _DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream)
+    plan = _plan("backward", x, (dy, x, gamma), (g_b, g_p))
+    err = _on_stream(x, load_library().s2p_fused_mat_norm_bwd,
+                     dy.data_ptr(), x.data_ptr(), gamma.data_ptr(), mean.data_ptr(),
+                     rstd.data_ptr(), dx.data_ptr(), dgamma.data_ptr(), B, H * W, C, g_b, g_p,
+                     _DTYPES[x.dtype], *_plan_args(plan))
     if err != 0:
         raise RuntimeError(f"fused_mat_norm_bwd: kernel launch failed with cudaError {err}")
     fused_mat_norm_bwd.launches += 1
@@ -251,9 +417,13 @@ def fused_mat_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     tensor)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_mat_norm: unsupported device {x.device}")
-    save = torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
-                                        or beta.requires_grad)
-    return FusedMATNorm.apply(x, gamma, beta, eps, save)
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
+                                    or beta.requires_grad):
+        return FusedMATNorm.apply(x, gamma, beta, eps, True)
+    # nothing to differentiate (inference): the kernel alone, without autograd's overhead
+    if x.device.type == "cpu":
+        return _plain_forward(x, gamma, beta, eps)[0]
+    return _launch_forward(x, gamma, beta, eps, False)[0]
 
 
 fused_mat_norm.launches = 0
