@@ -56,6 +56,38 @@ Phases, each of which must pass (the script stops at the first failure):
    finite. The launch counts are reset to 0 just before the bf16 window
    and read just after it.
 
+Phase 3 also holds the forward kernel against its plain version at the
+image bridge's shapes (the 100px chain at batch 256, bf16 and f32, γ and β
+contiguous as the module path passes them) and times it there.
+
+9. world model, card vs CPU: the full-width cheetah ensemble (obs 17, act
+   6, E 7, hidden 256 × 3, the rollout CLI's defaults; seeded weights) in
+   f32 with TF32 off runs ``generate_augmented_dataset`` and
+   ``generate_multistep_dataset`` on 4,096 seeded rows on both: actions,
+   window indices and every input column bit-equal, next obs, rewards and
+   both uncertainties within 1e-5 of the CPU's largest value; one Adam NLL
+   step's loss and gradients within 1e-5 (of the largest gradient).
+10. image bridge, card vs CPU: the full-width 100px generator (ngf 64,
+    state dim 17, seeded) runs ``generate_images_for_dataset`` on 8 rows in
+    f32 with TF32 off: uint8 frames within 1 step, at most 1% of the values
+    differ, 13 forward launches for the batch.
+11. the augmentation pipeline (a main path): a seeded state-only cheetah
+    dataset of 500 episodes × 1,000 steps; a fresh ensemble trained for the
+    CLI's 2,000 steps (``train_ensemble``); ``generate_augmented_dataset``
+    over all 500k rows; ``generate_images_for_dataset`` at batch 256 in
+    bf16 on the first 16,384 rows with seeded 100px frames (500k frames
+    would be 15 GB on the host). Prints ensemble steps/sec, augmented
+    transitions/sec and generated frames/sec; checks uint8 frames, finite
+    outputs, a falling NLL and 64 × 13 forward launches (counts reset to
+    0 just before the phase and read just after it).
+12. ``gb_int8``: the int8 γ‖β weights and conv on the card against the
+    CPU (the serving shape, and 16 and 49 rows at batch 1), then the
+    serving generator of phase 5 (bf16) runs
+    ``generate_rollout_fast(gb_int8=True)`` at batch 256 × seq_len 8: PSNR
+    ≥ 38 dB against the float fast path on the same card (the JAX test's
+    bar), 13 launches per step (counts reset around the timed window);
+    prints its frames/sec beside phase 5's.
+
 ``--ab DIR`` runs phases 1 and 2, then times the MAT-norm kernels against
 those of the checkout in DIR in turns, then the two main paths end to end
 (serving frames/sec, bf16 and f32 train step), each side in processes of
@@ -65,8 +97,9 @@ bf16 main-path shape, and stops.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` also writes a
-torch.profiler summary of one throughput rollout and of one bf16 train
-step to DIR.
+torch.profiler summary of one throughput rollout, of one bf16 train step,
+of four bridge batches, of 20 ensemble steps and of one ``gb_int8``
+rollout to DIR.
 """
 
 from __future__ import annotations
@@ -74,6 +107,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -122,6 +156,15 @@ SCALAR_SHAPES = ((16, 13, 12), (16, 8, 100), (16, 5, 40), (2, 50, 100), (8, 50, 
                  (64, 25, 40))
 SCALAR_PATHS = {("resident", False), ("resident", True), ("streaming", False),
                 ("streaming", True)}  # (path, split over a cluster)
+# the augmentation pipeline: the cheetah ensemble at the rollout CLI's
+# defaults (E 7, hidden 256 × 3) and the 100px generator of the image bridge
+ACT_DIM = 6
+BRIDGE_SIZE = 100
+WM_ROWS, WM_TOL = 4096, 1e-5
+PIPE_EPISODES, PIPE_EPISODE_LEN, PIPE_TRAIN_STEPS = 500, 1000, 2000  # the reference's 500k rows
+PIPE_FRAMES = 16384  # frames rendered: 64 batches of 256 (all 500k: 15 GB of uint8 on the host)
+BRIDGE_MAX_DIFF, BRIDGE_DIFF_SHARE = 1, 0.01
+GB_INT8_PSNR, GB_INT8_ROLLOUTS = 38.0, 3  # tests/test_fast_inference.py:170
 
 
 def fail(msg: str) -> None:
@@ -209,7 +252,7 @@ def mat_norm_inputs(batch, size, C, dtype, strided, mean=0.0, seed=0):
     return x, gb[..., :C], gb[..., C:]
 
 
-def phase_kernels(ck, shapes) -> dict:
+def phase_kernels(ck, shapes, bridge_shapes) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -274,6 +317,29 @@ def phase_kernels(ck, shapes) -> dict:
                     scalar_paths.add((plan.path, plan.cluster > 1))
     if scalar_paths != SCALAR_PATHS:
         fail(f"the scalar forward ran {sorted(scalar_paths)}, not every path and split")
+    # the image bridge: the 100px chain at batch 256, γ and β contiguous (the
+    # module path's separate conv outputs); timed in bf16, its working type
+    bridge = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for (size, C), per_step in sorted(bridge_shapes.items()):
+            x, g, b = mat_norm_inputs(BATCH, size, C, dtype, strided=False, seed=size + 3 * C)
+            plan = check(x, g, b, f"bridge B={BATCH} H=W={size} C={C} {name}")
+            if dtype != torch.bfloat16:
+                print(f"mat_norm bridge {name} B={BATCH} H=W={size} C={C} [{plan_label(plan)}]: "
+                      "matches plain")
+                continue
+            ms = device_ms(lambda: ck.fused_mat_norm(x, g, b))
+            plain_ms = device_ms(lambda: ck.fused_mat_norm_plain(x, g, b))
+            bound_ms = 4 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+            print(f"mat_norm bridge {name} B={BATCH} H=W={size} C={C} x{per_step}/step "
+                  f"[{plan_label(plan)}]: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                  f"bound {bound_ms:.4f} ms")
+            for key, v in dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms).items():
+                bridge[key] += per_step * v
+            del x, g, b
+    print("mat_norm per 100px/ngf=64 bridge batch of 256 bf16 (13 norms): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in bridge.items()))
     # the streaming path: 256² is too large for shared memory even split 8 ways
     batch, size, C = STREAM_SHAPE
     for dtype in (torch.bfloat16, torch.float32):
@@ -309,7 +375,7 @@ def phase_kernels(ck, shapes) -> dict:
     print("mat_norm per 64px/ngf=64 step at batch 256 bf16 (13 norms): "
           + ", ".join(f"{k} {v:.4f}" for k, v in step.items())
           + f"; PR 2 wall_ms {PR2_STEP_MS['serving_fwd']:.4f}")
-    return dict(step, max_abs_err=max_err[torch.float32],
+    return dict(step, bridge=bridge, max_abs_err=max_err[torch.float32],
                 max_abs_err_bf16=max_err[torch.bfloat16])
 
 
@@ -344,7 +410,7 @@ def phase_parity(ck, gen_cpu, gen_gpu) -> None:
             fail(f"{name}: {launches} kernel launches, expected {per_step * 5}")
 
 
-def phase_throughput(ck, gen, card: str, profile_dir: str | None) -> int:
+def phase_throughput(ck, gen, card: str, profile_dir: str | None) -> dict:
     import torch
 
     from s2p_tpu_torch.gan import generate_rollout_fast
@@ -378,7 +444,7 @@ def phase_throughput(ck, gen, card: str, profile_dir: str | None) -> int:
     if profile_dir:
         profile_device(lambda: generate_rollout_fast(gen, init, states), profile_dir,
                        "rollout")
-    return launches
+    return dict(launches=launches, fps=fps)
 
 
 # kinds of device work, by kernel name (first match wins)
@@ -918,11 +984,281 @@ def phase_train_throughput(ck, card: str, profile_dir: str | None) -> dict:
     return launches
 
 
+def state_dataset(n_episodes: int, episode_len: int, seed: int) -> dict:
+    """A seeded state-only cheetah dataset (obs 17, act 6; timeouts on each
+    episode's last row) in the image-RL schema without images. The next
+    observation and the reward follow (obs, act) through a fixed seeded
+    linear map plus noise, so the ensemble has a relation to learn."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    n = n_episodes * episode_len
+    obs = rs.randn(n, STATE_DIM).astype(np.float32)
+    act = rs.uniform(-1, 1, (n, ACT_DIM)).astype(np.float32)
+    dyn = (0.3 * rs.randn(STATE_DIM + ACT_DIM, STATE_DIM + 1)).astype(np.float32)
+    y = np.concatenate([obs, act], axis=1) @ dyn
+    y += (0.1 * rs.randn(n, STATE_DIM + 1)).astype(np.float32)
+    timeouts = np.zeros(n, np.float32)
+    timeouts[episode_len - 1::episode_len] = 1.0
+    return dict(observations=obs, actions=act, rewards=y[:, -1].copy(),
+                next_observations=obs + y[:, :-1], terminals=np.zeros(n, np.float32),
+                timeouts=timeouts)
+
+
+def rel_err(got, ref) -> float:
+    """max |got − ref| over max |ref| (numpy or torch)."""
+    import numpy as np
+
+    got, ref = (np.asarray(v.detach().cpu() if hasattr(v, "detach") else v, np.float64)
+                for v in (got, ref))
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def phase_world_model() -> None:
+    import numpy as np
+    import torch
+
+    from s2p_tpu_torch.cli.state_transition_rollout import ensemble_training_arrays
+    from s2p_tpu_torch.world_model import (
+        EnsembleTransition,
+        compute_normalization,
+        generate_augmented_dataset,
+        generate_multistep_dataset,
+        make_ensemble_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = state_dataset(4, WM_ROWS // 4, seed=21)
+    norm = compute_normalization(ds)
+    low, high = np.full(ACT_DIM, -1.0), np.full(ACT_DIM, 1.0)
+    cpu = EnsembleTransition(STATE_DIM, ACT_DIM, seed=0, device="cpu")
+    gpu = copy.deepcopy(cpu).to("cuda")
+    predicted = {"next_observations", "rewards", "disagreement_uncertainty",
+                 "aleatoric_uncertainty"}
+    for name, fn, kw, floats in (
+            ("generate_augmented_dataset", generate_augmented_dataset, dict(num_sequences=8),
+             predicted),
+            ("generate_multistep_dataset", generate_multistep_dataset, dict(horizon=5),
+             predicted | {"observations"})):
+        t0 = time.time()
+        ref = fn(ds, cpu, norm, low, high, seed=3, **kw)
+        cpu_s = time.time() - t0
+        got = fn(ds, gpu, norm, low, high, seed=3, **kw)
+        if sorted(got) != sorted(ref):
+            fail(f"{name}: keys {sorted(got)} on the card, {sorted(ref)} on the CPU")
+        worst = {}
+        for k, r in ref.items():
+            g = got[k]
+            if g.shape != r.shape or g.dtype != r.dtype:
+                fail(f"{name} {k}: {g.dtype} {g.shape} on the card, {r.dtype} {r.shape} on the CPU")
+            if k in floats:
+                worst[k] = rel_err(g, r)
+                if not np.isfinite(g).all() or worst[k] > WM_TOL:
+                    fail(f"{name} {k}: card vs CPU {worst[k]:.3g} of max |cpu| (tolerance "
+                         f"{WM_TOL})")
+            elif not np.array_equal(g, r):
+                fail(f"{name} {k}: the card's and the CPU's are not bit-equal")
+        print(f"world model {name} on {WM_ROWS} rows, f32: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in worst.items()) + f" of max |cpu| (tolerance {WM_TOL}); "
+            f"every other column bit-equal; cpu {cpu_s:.1f} s")
+
+    x, y = ensemble_training_arrays(ds, norm)
+    idx = np.random.RandomState(5).randint(0, len(x), 256)
+    steps = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        model = copy.deepcopy(model)
+        dev = next(model.parameters()).device
+        loss = make_ensemble_train_step(model)(torch.from_numpy(x[idx]).to(dev),
+                                               torch.from_numpy(y[idx]).to(dev))
+        steps[name] = (loss.item(), {k: p.grad.double().cpu() for k, p in model.named_parameters()})
+    (loss_ref, g_ref), (loss, grads) = steps["cpu"], steps["cuda"]
+    scale = max(g.abs().max().item() for g in g_ref.values())
+    g_err = max((grads[k] - g).abs().max().item() / scale for k, g in g_ref.items())
+    l_err = abs(loss - loss_ref) / abs(loss_ref)
+    print(f"world model Adam NLL step, batch 256: loss cuda {loss:.8g} cpu {loss_ref:.8g} "
+          f"(relative {l_err:.3g}); gradients {g_err:.3g} of the largest |gradient| {scale:.3g} "
+          f"(tolerance {WM_TOL})")
+    if l_err > WM_TOL or g_err > WM_TOL:
+        fail(f"world model train step: loss {l_err:.3g}, gradients {g_err:.3g} from the CPU's")
+
+
+def phase_bridge_parity(ck, gen_cpu, gen_gpu) -> None:
+    import numpy as np
+    import torch
+
+    from s2p_tpu_torch.cli.generate_images import generate_images_for_dataset
+
+    torch.backends.cudnn.allow_tf32 = False
+    rs = np.random.RandomState(31)
+    ds = dict(next_observations=rs.randn(8, STATE_DIM).astype(np.float32),
+              image_observations=rs.randint(0, 256, (8, BRIDGE_SIZE, BRIDGE_SIZE, 3),
+                                            dtype=np.uint8))
+    t0 = time.time()
+    ref = generate_images_for_dataset(ds, gen_cpu, batch_size=8)
+    cpu_s = time.time() - t0
+    before = ck.fused_mat_norm.launches
+    got = generate_images_for_dataset(ds, gen_gpu, batch_size=8)
+    launches = ck.fused_mat_norm.launches - before
+    diff = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+    share = float((diff > 0).mean())
+    print(f"bridge parity generate_images_for_dataset 100px ngf=64, 8 rows f32: max |cuda - cpu| "
+          f"{diff.max()} uint8 steps, {100 * share:.3f}% of values differ (tolerance "
+          f"{BRIDGE_MAX_DIFF}, {100 * BRIDGE_DIFF_SHARE}%), fused_mat_norm launches {launches}, "
+          f"cpu {cpu_s:.1f} s")
+    if got.shape != (8, BRIDGE_SIZE, BRIDGE_SIZE, 3) or got.dtype != np.uint8:
+        fail(f"bridge: {got.dtype} {got.shape}")
+    if diff.max() > BRIDGE_MAX_DIFF or share > BRIDGE_DIFF_SHARE:
+        fail(f"bridge frames: card and CPU differ by up to {diff.max()} in {share:.3%}")
+    if launches != sum(norm_shapes(gen_gpu).values()):
+        fail(f"bridge: {launches} forward launches for one batch, expected 13")
+
+
+def phase_pipeline(ck, gen, card: str, profile_dir: str | None) -> int:
+    import numpy as np
+    import torch
+
+    from s2p_tpu_torch.cli.generate_images import generate_images_for_dataset
+    from s2p_tpu_torch.cli.state_transition_rollout import (
+        ensemble_training_arrays,
+        train_ensemble,
+    )
+    from s2p_tpu_torch.world_model import (
+        EnsembleTransition,
+        compute_normalization,
+        generate_augmented_dataset,
+        make_ensemble_train_step,
+    )
+
+    t0 = time.time()
+    ds = state_dataset(PIPE_EPISODES, PIPE_EPISODE_LEN, seed=41)
+    frames_in = np.random.RandomState(42).randint(
+        0, 256, (PIPE_FRAMES, BRIDGE_SIZE, BRIDGE_SIZE, 3), dtype=np.uint8)
+    n = len(ds["observations"])
+    print(f"pipeline: {n} state rows and {PIPE_FRAMES} 100px frames made in "
+          f"{time.time() - t0:.1f} s")
+    warm = dict(next_observations=ds["next_observations"][:BATCH],
+                image_observations=frames_in[:BATCH])
+    generate_images_for_dataset(warm, gen, BATCH, bf16=True)  # cuDNN's first calls
+    torch.cuda.synchronize()
+
+    ck.fused_mat_norm.launches = ck.fused_mat_norm_bwd.launches = 0
+    t0 = time.perf_counter()
+    norm = compute_normalization(ds)
+    model = EnsembleTransition(STATE_DIM, ACT_DIM, seed=0, device="cuda")
+    history = train_ensemble(model, ds, norm, PIPE_TRAIN_STEPS, seed=0)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    aug = generate_augmented_dataset(ds, model, norm, np.full(ACT_DIM, -1.0),
+                                     np.full(ACT_DIM, 1.0), seed=0)
+    aug_s = time.perf_counter() - t0
+    bridge = dict(next_observations=aug["next_observations"][:PIPE_FRAMES],
+                  image_observations=frames_in)
+    t0 = time.perf_counter()
+    frames = generate_images_for_dataset(bridge, gen, BATCH, bf16=True)
+    gen_s = time.perf_counter() - t0
+    launches, bwd = ck.fused_mat_norm.launches, ck.fused_mat_norm_bwd.launches
+
+    print(f"pipeline ensemble (E 7, hidden 256 x 3, f32): {PIPE_TRAIN_STEPS} Adam steps at batch "
+          f"256 in {train_s:.2f} s, {PIPE_TRAIN_STEPS / train_s:.1f} steps/sec; nll "
+          + ", ".join(f"step {i} {v:.4f}" for i, v in history) + f" on {card}")
+    print(f"pipeline generate_augmented_dataset: {n} rows in {aug_s:.2f} s, "
+          f"{n / aug_s:.1f} augmented transitions/sec on {card}")
+    print(f"pipeline generate_images_for_dataset 100px ngf=64 bf16 batch {BATCH}: {PIPE_FRAMES} "
+          f"frames in {gen_s:.2f} s, {PIPE_FRAMES / gen_s:.1f} generated frames/sec; "
+          f"fused_mat_norm launches {launches} (expected {PIPE_FRAMES // BATCH} batches x 13) "
+          f"on {card}")
+    for k in ("next_observations", "rewards", "disagreement_uncertainty", "aleatoric_uncertainty"):
+        if not np.isfinite(aug[k]).all():
+            fail(f"pipeline: non-finite {k}")
+    if aug["slac_observation_indices"].shape != (n, 9) or aug["actions"].shape != (n, ACT_DIM):
+        fail("pipeline: augmented columns of the wrong shape")
+    if frames.dtype != np.uint8 or frames.shape != frames_in.shape:
+        fail(f"pipeline frames: {frames.dtype} {frames.shape}")
+    if not history[-1][1] < history[0][1]:
+        fail(f"pipeline: the ensemble's NLL did not fall ({history})")
+    expected = PIPE_FRAMES // BATCH * sum(norm_shapes(gen).values())
+    if launches != expected or bwd:
+        fail(f"pipeline launched fused_mat_norm {launches} times (expected {expected}) and "
+             f"its backward {bwd} times")
+    if profile_dir:
+        sub = {k: v[:4 * BATCH] for k, v in bridge.items()}
+        profile_device(lambda: generate_images_for_dataset(sub, gen, BATCH, bf16=True),
+                       profile_dir, "bridge")
+        # 20 training steps as train_ensemble takes them: indices up, rows gathered
+        x, y = (torch.from_numpy(a).cuda() for a in ensemble_training_arrays(ds, norm))
+        step, rs = make_ensemble_train_step(model), np.random.RandomState(1)
+
+        def steps():
+            for _ in range(20):
+                idx = torch.from_numpy(rs.randint(0, n, 256)).to("cuda")
+                step(x[idx], y[idx])
+
+        profile_device(steps, profile_dir, "ensemble_20_steps")
+    return launches
+
+
+def phase_gb_int8(ck, gen, card: str, serving_fps: float, profile_dir: str | None) -> int:
+    import torch
+
+    from s2p_tpu_torch.gan import generate_rollout_fast
+    from s2p_tpu_torch.gan.fast_inference import _conv_gb_int8, _quantize_gb_kernel
+
+    # the int8 weights and product on the card against the CPU (int32 sums are
+    # exact): the serving shape, and 16 (padded) and 49 rows at batch 1
+    g = torch.Generator(device="cuda").manual_seed(7)
+    w = torch.randn(512, 128, 3, 3, device="cuda", generator=g) / 34.0
+    bias = 0.1 * torch.randn(512, device="cuda", generator=g)
+    q, q_cpu = _quantize_gb_kernel(w), _quantize_gb_kernel(w.cpu())
+    if not all(torch.equal(q[k].cpu(), q_cpu[k]) for k in q):
+        fail("gb_int8: the weights quantized on the card differ from the CPU's")
+    for batch, size in ((BATCH, 16), (1, 4), (1, 7)):
+        h = torch.randn(batch, 128, size, size, device="cuda", generator=g).relu()
+        h = h.contiguous(memory_format=torch.channels_last)
+        err = rel_err(_conv_gb_int8(h, q, bias), _conv_gb_int8(h.cpu(), q_cpu, bias.cpu()))
+        print(f"gb_int8 conv B={batch} {size}x{size} 128 -> 512 on the card vs the CPU: "
+              f"{err:.3g} of max |cpu| (tolerance 1e-6)")
+        if err > 1e-6:
+            fail(f"gb_int8 conv at B={batch} {size}x{size}: card and CPU differ by {err:.3g}")
+
+    r = torch.Generator(device="cuda").manual_seed(1)  # phase 5's inputs
+    states = torch.randn(SEQ_LEN, BATCH, STATE_DIM, device="cuda", generator=r).bfloat16()
+    init = (torch.rand(BATCH, 64, 64, 3, device="cuda", generator=r) * 2 - 1).bfloat16()
+    ref_frames = generate_rollout_fast(gen, init, states).float()
+    generate_rollout_fast(gen, init, states, gb_int8=True)
+    torch.cuda.synchronize()
+    ck.fused_mat_norm.launches = ck.fused_mat_norm_bwd.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(GB_INT8_ROLLOUTS):
+        frames = generate_rollout_fast(gen, init, states, gb_int8=True)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = ck.fused_mat_norm.launches
+    fps = BATCH * SEQ_LEN * GB_INT8_ROLLOUTS / elapsed
+    mse = (frames.float() - ref_frames).square().mean().item()
+    psnr = 10 * math.log10(4.0 / max(mse, 1e-12))
+    print(f"gb_int8 generate_rollout_fast 64px ngf=64 bf16 batch {BATCH} seq_len {SEQ_LEN}: "
+          f"{fps:.1f} frames/sec ({elapsed / GB_INT8_ROLLOUTS * 1e3:.2f} ms per rollout, "
+          f"{GB_INT8_ROLLOUTS} rollouts; the float path in phase 5: {serving_fps:.1f}); PSNR "
+          f"{psnr:.2f} dB against the float path (bar {GB_INT8_PSNR}) on {card}")
+    if frames.shape != (SEQ_LEN, BATCH, 64, 64, 3) or not torch.isfinite(frames).all():
+        fail("gb_int8 rollout produced a bad or non-finite output")
+    if psnr < GB_INT8_PSNR:
+        fail(f"gb_int8 rollout at {psnr:.2f} dB against the float path")
+    expected = sum(norm_shapes(gen).values()) * SEQ_LEN * GB_INT8_ROLLOUTS
+    if launches != expected or ck.fused_mat_norm_bwd.launches:
+        fail(f"gb_int8 path launched fused_mat_norm {launches} times, expected {expected}")
+    if profile_dir:
+        profile_device(lambda: generate_rollout_fast(gen, init, states, gb_int8=True),
+                       profile_dir, "rollout_gb_int8")
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="also write a torch.profiler summary of one rollout to DIR")
+                    help="also write torch.profiler summaries of each main path to DIR")
     ap.add_argument("--ab", default=None, metavar="DIR",
                     help="only build and time the MAT-norm kernels against those of the "
                          "checkout in DIR, in turns, and stop (no result line)")
@@ -969,18 +1305,18 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen_cpu = S2PGenerator(STATE_DIM, seed=0, device="cpu", **FULL)
-    stats = phase_kernels(ck, norm_shapes(gen_cpu))
+    gen100 = S2PGenerator(STATE_DIM, image_size=TRAIN_SIZE, ngf=64, device="cpu")
+    stats = phase_kernels(ck, norm_shapes(gen_cpu), norm_shapes(gen100))
 
     # phase 4: slice parity, card vs CPU
     gen_gpu = copy.deepcopy(gen_cpu).to("cuda")
     phase_parity(ck, gen_cpu, gen_gpu)
 
-    # phase 5: serving throughput, a main path
-    serving = phase_throughput(ck, gen_gpu.to(torch.bfloat16), card, args.profile)
-    del gen_gpu
+    # phase 5: serving throughput, a main path (its bf16 generator serves phase 12)
+    serving_gen = gen_gpu.to(torch.bfloat16)
+    serving = phase_throughput(ck, serving_gen, card, args.profile)
 
     # phase 6: backward kernel vs plain at the 100px training shapes
-    gen100 = S2PGenerator(STATE_DIM, image_size=TRAIN_SIZE, ngf=64, device="cpu")
     bwd = phase_backward(ck, norm_shapes(gen100))
 
     # phase 7: one full-width train step, card vs CPU
@@ -990,27 +1326,47 @@ def main() -> None:
     # phase 8: training throughput, a main path
     training = phase_train_throughput(ck, card, args.profile)
 
+    # phase 9: world model, card vs CPU
+    phase_world_model()
+
+    # phase 10: image bridge, card vs CPU (the full-width 100px generator)
+    gen100_gpu = copy.deepcopy(gen100).to("cuda")
+    phase_bridge_parity(ck, gen100, gen100_gpu)
+
+    # phase 11: the augmentation pipeline, a main path
+    bridge = phase_pipeline(ck, gen100_gpu, card, args.profile)
+    del gen100_gpu
+
+    # phase 12: gb_int8 on the serving generator
+    gb_int8 = phase_gb_int8(ck, serving_gen, card, serving["fps"], args.profile)
+
+    by_path = dict(serving=serving["launches"], training=training["fwd"], bridge=bridge,
+                   gb_int8=gb_int8)
     fwd_record = dict(
         name="fused_mat_norm", route="cuda", source="s2p_tpu_torch/csrc/fused_mat_norm.cu",
-        replaces="s2p_tpu/gan/pallas_kernels.py:49", launches=serving + training["fwd"],
-        launches_by_path=dict(serving=serving, training=training["fwd"]),
+        replaces="s2p_tpu/gan/pallas_kernels.py:49", launches=sum(by_path.values()),
+        launches_by_path=by_path,
         max_abs_err=stats["max_abs_err"], max_abs_err_bf16=stats["max_abs_err_bf16"],
         ms=stats["ms"], plain_ms=stats["plain_ms"], bound_ms=stats["bound_ms"],
         bound_by="bytes", library_ms=None,
         wall_ms=stats["wall_ms"], instance_norm_ms=stats["instance_norm_ms"],
         train_step_ms=bwd["fwd_ms"], train_step_wall_ms=bwd["fwd_wall_ms"],
         train_step_plain_ms=bwd["fwd_plain_ms"], train_step_bound_ms=bwd["fwd_bound_ms"],
+        bridge_batch_ms=stats["bridge"]["ms"], bridge_batch_plain_ms=stats["bridge"]["plain_ms"],
+        bridge_batch_bound_ms=stats["bridge"]["bound_ms"],
         per="ms/plain_ms/bound_ms: one 64px/ngf=64 generator step at batch 256 in bf16 "
             "(13 norms); train_step_*: the 13 norms of a 100px/ngf=64 train step at batch "
-            "16 in bf16; ms, plain_ms: device time (CUDA graph replay), where the records "
-            "of PR 1 and PR 2 gave wall time per call as ms, so ms is not comparable with "
-            "theirs; wall_ms: wall time per wrapper call in a loop, host included, as they "
-            "timed ms; instance_norm_ms is F.instance_norm alone, a partial yardstick",
+            "16 in bf16; bridge_batch_*: the 13 norms of one 100px/ngf=64 bridge batch of "
+            "256 in bf16 (gamma and beta contiguous); ms, plain_ms: device time (CUDA graph "
+            "replay), where the records of PR 1 and PR 2 gave wall time per call as ms, so "
+            "ms is not comparable with theirs; wall_ms: wall time per wrapper call in a "
+            "loop, host included, as they timed ms; instance_norm_ms is F.instance_norm "
+            "alone, a partial yardstick",
     )
     bwd_record = dict(
         name="fused_mat_norm_bwd", route="cuda", source="s2p_tpu_torch/csrc/fused_mat_norm.cu",
         replaces="s2p_tpu/gan/pallas_kernels.py:49", launches=training["bwd"],
-        launches_by_path=dict(serving=0, training=training["bwd"]),
+        launches_by_path=dict(serving=0, training=training["bwd"], bridge=0, gb_int8=0),
         max_abs_err=bwd["max_abs_err"], max_abs_err_bf16=bwd["max_abs_err_bf16"],
         ms=bwd["ms"], plain_ms=bwd["plain_ms"], bound_ms=bwd["bound_ms"], bound_by="bytes",
         library_ms=None, wall_ms=bwd["wall_ms"],

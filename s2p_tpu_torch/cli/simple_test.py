@@ -64,6 +64,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use_pallas", action="store_true",
                    help="accepted for parity with the JAX CLI: on CUDA the "
                         "fused MAT-norm kernel always runs")
+    p.add_argument("--gb_int8", action="store_true",
+                   help="with --fast_inference: int8 γ/β modulation convs (per-channel int8 "
+                        "weights, per-sample activation scale, int32 accumulation); frames "
+                        "differ from the float path by quantization noise")
     return p
 
 
@@ -118,8 +122,10 @@ def main(argv: Optional[list] = None) -> str:
 
     init_img = torch.from_numpy(imgs[t0].astype(np.float32) / 127.5 - 1.0)[None].to(device)
     roll_states = torch.from_numpy(states[t0:t0 + L].astype(np.float32))[:, None].to(device)
-    rollout = generate_rollout_fast if args.fast_inference else generate_rollout
-    frames = rollout(gen, init_img, roll_states)
+    if args.fast_inference:
+        frames = generate_rollout_fast(gen, init_img, roll_states, gb_int8=args.gb_int8)
+    else:
+        frames = generate_rollout(gen, init_img, roll_states)
     frames = frames[:, 0].float().cpu().numpy()  # [L, H, W, C]
     frames_u8 = ((frames + 1.0) * 127.5).clip(0, 255).astype(np.uint8)
 

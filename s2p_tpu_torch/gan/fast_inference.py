@@ -17,6 +17,13 @@ Tensors here are NCHW in channels_last memory, as in ``generator.py``. The
 fast path runs an ``S2PGenerator``'s own layers, except that each MAT norm
 reads operands that ``fuse_fast_params`` precomputes from the same weights.
 The modulated instance norm runs through the fused CUDA kernel on the card.
+
+``gb_int8`` (opt-in) runs each γ‖β conv on int8 operands: per-output-channel
+int8 weights quantized once by ``fuse_fast_params(..., gb_int8=True)``,
+activations quantized per sample at run time, an int32 product
+(``torch._int_mm``, a library GEMM: the JAX package leaves this conv to XLA,
+not to a Pallas kernel) and an f32 dequantization. Its frames differ from
+the float path's by 8-bit quantization noise.
 """
 
 from __future__ import annotations
@@ -97,21 +104,46 @@ def conv_const_map(e: torch.Tensor, kernel: torch.Tensor, H: int, W: int) -> tor
     return _const_map_from_t(_reduce_terms(e, _const_map_terms(kernel)), H, W)
 
 
-def _norm_params(norm: torch.nn.Module, S: int) -> Params:
+def _per_127(t: torch.Tensor) -> torch.Tensor:
+    """``t / 127`` rounded as one true division on every device. PyTorch's
+    CUDA kernel multiplies by the reciprocal of a Python-number divisor
+    (the CPU's f32 kernel and XLA divide), which can differ in the last
+    bit, and a scale one bit off flips 8-bit roundings."""
+    return t / t.new_tensor(127.0)
+
+
+def _quantize_gb_kernel(weight: torch.Tensor) -> Params:
+    """Per-output-channel symmetric int8 quantization of a γ‖β conv weight
+    ``[N, C, 3, 3]``: ``kernel_i8`` ``[9·C, N]`` int8, contiguous, its rows
+    in (ky, kx, c) order as ``_im2col_3x3`` lays out the activations (the
+    JAX package's HWIO kernel reshaped), and the f32 dequantization scale
+    ``scale_w`` ``[N]``."""
+    w = weight.float().permute(2, 3, 1, 0).reshape(-1, weight.shape[0])  # [(ky, kx, c), N]
+    scale = _per_127(w.abs().amax(dim=0).clamp_min(1e-12))
+    q = torch.clamp(torch.round(w / scale), -127, 127)
+    return dict(kernel_i8=q.to(torch.int8).contiguous(), scale_w=scale)
+
+
+def _norm_params(norm: torch.nn.Module, S: int, gb_int8: bool = False) -> Params:
     """Per-norm fusions: γ‖β conv ``mlp_gb``, the state half's constant-map
-    terms, and the image half ``k_img`` of ``mlp_shared``."""
+    terms, the image half ``k_img`` of ``mlp_shared`` and, with ``gb_int8``,
+    the quantized γ‖β weight ``mlp_gb_q``."""
     k = norm.mlp_shared.weight  # [hidden, S + C_img, 3, 3]
-    return dict(
+    p = dict(
         mlp_shared_bias=norm.mlp_shared.bias,
         mlp_gb=dict(weight=_cl(torch.cat([norm.mlp_gamma.weight, norm.mlp_beta.weight], 0)),
                     bias=torch.cat([norm.mlp_gamma.bias, norm.mlp_beta.bias], 0)),
         cmap_terms=_const_map_terms(k[:, :S]),
         k_img=_cl(k[:, S:]),
     )
+    if gb_int8:
+        p["mlp_gb_q"] = _quantize_gb_kernel(p["mlp_gb"]["weight"])
+    return p
 
 
 @torch.no_grad()
-def fuse_fast_params(gen: S2PGenerator, block_level: bool = True) -> Params:
+def fuse_fast_params(gen: S2PGenerator, block_level: bool = True,
+                     gb_int8: bool = False) -> Params:
     """Precompute, once and outside the rollout loop, the fused operands the
     fast path reads beside ``gen``'s own layers.
 
@@ -123,7 +155,9 @@ def fuse_fast_params(gen: S2PGenerator, block_level: bool = True) -> Params:
     norm_0, norm_1, norm_s) order, so the whole network's state modulation
     is ONE matmul per step. ``block_level=False`` keeps only the per-norm
     fusions: the block-level concat holds a 2–3× wider hidden map, which
-    costs memory at very large batch."""
+    costs memory at very large batch. ``gb_int8`` adds, per norm,
+    ``mlp_gb_q``: the γ‖β weight quantized to int8 for the opt-in int8
+    modulation; the float operands stay, so the float path is unchanged."""
     if gen.mat_mode != "mat":
         raise ValueError(f"the fast path specializes the MAT layout, not {gen.mat_mode!r}")
     S = gen.state_fc1.weight.shape[0]
@@ -132,7 +166,8 @@ def fuse_fast_params(gen: S2PGenerator, block_level: bool = True) -> Params:
     for i in range(len(gen.sizes)):
         block = getattr(gen, f"block_{i}")
         norms = [n for n in NORMS if hasattr(block, n)]
-        bp: Params = dict(norms=norms, **{n: _norm_params(getattr(block, n), S) for n in norms})
+        bp: Params = dict(norms=norms, **{n: _norm_params(getattr(block, n), S, gb_int8)
+                                          for n in norms})
         if block_level:
             bp["shared_cat"] = dict(
                 weight=_cl(torch.cat([bp[n]["k_img"] for n in norms], 0)),
@@ -145,22 +180,64 @@ def fuse_fast_params(gen: S2PGenerator, block_level: bool = True) -> Params:
     return p
 
 
-def _modulate(x: torch.Tensor, h: torch.Tensor, p: Params) -> torch.Tensor:
-    """γ‖β conv over the norm's hidden map ``h``, then the modulated
-    instance norm, with γ and β read in place as the conv output's two
-    channel halves."""
-    gb = _cl(F.conv2d(_cl(h), p["mlp_gb"]["weight"], p["mlp_gb"]["bias"], padding=1))
+def _im2col_3x3(q: torch.Tensor) -> torch.Tensor:
+    """The ``[B·H·W, 9·C]`` patches of a 3×3 zero-padded conv over NHWC
+    ``q`` (any type: ``F.unfold`` has no int8 version), columns in (ky, kx,
+    c) order, built from 9 shifted slices of one padded copy."""
+    B, H, W, C = q.shape
+    padded = q.new_zeros(B, H + 2, W + 2, C)
+    padded[:, 1:-1, 1:-1] = q
+    cols = torch.cat([padded[:, ky:ky + H, kx:kx + W] for ky in range(3) for kx in range(3)],
+                     dim=-1)
+    return cols.reshape(B * H * W, 9 * C)
+
+
+def _conv_gb_int8(h: torch.Tensor, q: Params, bias: torch.Tensor) -> torch.Tensor:
+    """The γ‖β conv over NCHW ``h`` on int8 operands: activations quantized
+    per sample (symmetric absmax, round half to even, clipped to ±127), an
+    im2col product with the int8 weight accumulated in int32 (exact while
+    127²·K < 2³¹; K = 9·C is 1,152 at full width), then ``acc · (s_h·scale_w) +
+    bias`` in f32, cast back to h's type; NCHW in channels_last out.
+    ``torch._int_mm`` on the card needs more than 16 rows and K, N
+    multiples of 8, so a product of 16 rows or fewer (the 4×4 seed block at
+    batch 1) is padded to 17; both operands are contiguous, the layout its
+    cuBLASLt path takes."""
+    hf = h.float().permute(0, 2, 3, 1)  # NHWC
+    B, H, W, _ = hf.shape
+    s_h = _per_127(hf.abs().amax(dim=(1, 2, 3), keepdim=True).clamp_min(1e-12))
+    qh = torch.clamp(torch.round(hf / s_h), -127, 127).to(torch.int8)
+    cols = _im2col_3x3(qh)
+    M = cols.shape[0]
+    if M <= 16:
+        cols = torch.cat([cols, cols.new_zeros(17 - M, cols.shape[1])])
+    acc = torch._int_mm(cols, q["kernel_i8"])[:M].reshape(B, H, W, -1)
+    out = acc.float() * (s_h * q["scale_w"]) + bias.float()
+    return out.to(h.dtype).permute(0, 3, 1, 2)
+
+
+def _modulate(x: torch.Tensor, h: torch.Tensor, p: Params, gb_int8: bool = False
+              ) -> torch.Tensor:
+    """γ‖β conv over the norm's hidden map ``h`` (on int8 operands with
+    ``gb_int8``), then the modulated instance norm, with γ and β read in
+    place as the conv output's two channel halves."""
+    if gb_int8:
+        if "mlp_gb_q" not in p:
+            raise ValueError("gb_int8=True needs the int8 operands: fuse the parameters with "
+                             "fuse_fast_params(gen, gb_int8=True)")
+        gb = _conv_gb_int8(h, p["mlp_gb_q"], p["mlp_gb"]["bias"])
+    else:
+        gb = _cl(F.conv2d(_cl(h), p["mlp_gb"]["weight"], p["mlp_gb"]["bias"], padding=1))
     C = gb.shape[1] // 2
     return mat_norm_nchw(x, gb[:, :C], gb[:, C:])
 
 
 def _mat_norm_fast(x: torch.Tensor, e: torch.Tensor, image_feat: torch.Tensor,
-                   p: Params) -> torch.Tensor:
+                   p: Params, gb_int8: bool = False) -> torch.Tensor:
     """MATNorm with the shared conv split: state half by the constant-map
     shortcut, image half as a real conv."""
     h = F.conv2d(image_feat, p["k_img"], padding=1)
     h = _add_const_map(h, _reduce_terms(e, p["cmap_terms"]), p["mlp_shared_bias"])
-    return _modulate(x, h.relu_(), p)
+    return _modulate(x, h.relu_(), p, gb_int8)
 
 
 def _block_hidden_maps(image_feat: torch.Tensor, t_blk: torch.Tensor, p: Params,
@@ -176,15 +253,16 @@ def _block_hidden_maps(image_feat: torch.Tensor, t_blk: torch.Tensor, p: Params,
 
 def _res_block_fast(x: torch.Tensor, e: torch.Tensor, image_feat: torch.Tensor,
                     block: torch.nn.Module, p: Params,
-                    t_blk: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    t_blk: Optional[torch.Tensor] = None, gb_int8: bool = False
+                    ) -> torch.Tensor:
     """``MATResBlock.forward`` with the fast MAT norms; ``block`` supplies
     the res-block convs, ``p`` the block's fused operands."""
     norms = p["norms"]
     if t_blk is not None and "shared_cat" in p:
         hmaps = dict(zip(norms, _block_hidden_maps(image_feat, t_blk, p, norms)))
-        mat_norm = lambda x, n: _modulate(x, hmaps[n], p[n])
+        mat_norm = lambda x, n: _modulate(x, hmaps[n], p[n], gb_int8)
     else:
-        mat_norm = lambda x, n: _mat_norm_fast(x, e, image_feat, p[n])
+        mat_norm = lambda x, n: _mat_norm_fast(x, e, image_feat, p[n], gb_int8)
     h = block.conv_0(F.leaky_relu(mat_norm(x, "norm_0"), 0.2))
     h = block.conv_1(F.leaky_relu(mat_norm(h, "norm_1"), 0.2))
     s = block.conv_s(mat_norm(x, "norm_s")) if "norm_s" in p else x
@@ -193,12 +271,15 @@ def _res_block_fast(x: torch.Tensor, e: torch.Tensor, image_feat: torch.Tensor,
 
 @torch.no_grad()
 def fast_apply(gen: S2PGenerator, params: Params, state: torch.Tensor,
-               prev_image: torch.Tensor) -> torch.Tensor:
+               prev_image: torch.Tensor, gb_int8: bool = False) -> torch.Tensor:
     """Drop-in for ``gen(state, prev_image)`` (mat_mode 'mat' only), NHWC
     in and out, with ``params = fuse_fast_params(gen, ...)``: the same
     weights, the same output up to float re-association. The encoder, the
     state embedding, the seed map, the res-block convs and the head are
-    ``gen``'s own layers; only the MAT norms take the shortcut."""
+    ``gen``'s own layers; only the MAT norms take the shortcut. ``gb_int8``
+    runs the γ‖β convs on int8 operands and needs ``params`` fused with
+    ``gb_int8=True`` (else it raises: the JAX package would run the float
+    path instead)."""
     sizes = gen.sizes
     enc_by_size = {f.shape[-1]: f for f in gen.img_enc(prev_image.permute(0, 3, 1, 2))}
     e = gen.embed_state(state)
@@ -214,7 +295,8 @@ def fast_apply(gen: S2PGenerator, params: Params, state: torch.Tensor,
             w = blk["shared_cat"]["weight"].shape[0]
             t_blk = t_all[:, :, off:off + w]
             off += w
-        x = _res_block_fast(x, e, enc_by_size[size], getattr(gen, f"block_{i}"), blk, t_blk)
+        x = _res_block_fast(x, e, enc_by_size[size], getattr(gen, f"block_{i}"), blk, t_blk,
+                            gb_int8)
         if i < len(sizes) - 1:
             x = upsample_nearest(x, sizes[i + 1])
     x = gen.conv_img(F.leaky_relu(x, 0.2))
@@ -223,16 +305,17 @@ def fast_apply(gen: S2PGenerator, params: Params, state: torch.Tensor,
 
 @torch.no_grad()
 def generate_rollout_fast(gen: S2PGenerator, init_image: torch.Tensor,
-                          states: torch.Tensor, block_fusion: bool = True) -> torch.Tensor:
+                          states: torch.Tensor, block_fusion: bool = True,
+                          gb_int8: bool = False) -> torch.Tensor:
     """``seq_len`` autoregressive steps with ``fast_apply``: init_image
     ``[B, H, W, C]``, states ``[T, B, S]`` (s_{t+1} for each step) →
     frames ``[T, B, H, W, C]``. The weights are fused once, before the
     loop; ``block_fusion`` toggles the block-level fusion (see
-    ``fuse_fast_params``)."""
-    params = fuse_fast_params(gen, block_level=block_fusion)
+    ``fuse_fast_params``), ``gb_int8`` the int8 γ‖β convs."""
+    params = fuse_fast_params(gen, block_level=block_fusion, gb_int8=gb_int8)
     frames = []
     img = init_image
     for s in states:
-        img = fast_apply(gen, params, s, img)
+        img = fast_apply(gen, params, s, img, gb_int8)
         frames.append(img)
     return torch.stack(frames)

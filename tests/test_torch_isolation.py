@@ -40,7 +40,10 @@ def test_port_imports_nothing_of_jax():
             "s2p_tpu_torch.gan.training", "s2p_tpu_torch.gan.metrics",
             "s2p_tpu_torch.data.pair_dataset", "s2p_tpu_torch.utils.logging",
             "s2p_tpu_torch.utils.checkpoint", "s2p_tpu_torch.utils.seeding",
-            "s2p_tpu_torch.cli.train_gan"} <= set(report["modules"])
+            "s2p_tpu_torch.cli.train_gan", "s2p_tpu_torch.world_model",
+            "s2p_tpu_torch.world_model.ensemble", "s2p_tpu_torch.world_model.rollout",
+            "s2p_tpu_torch.cli.state_transition_rollout", "s2p_tpu_torch.cli.generate_images",
+            "s2p_tpu_torch.cli.generate_rl_dataset"} <= set(report["modules"])
 
 
 def test_cli_without_cpu_flag_needs_cuda(monkeypatch, tmp_path):

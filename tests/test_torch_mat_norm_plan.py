@@ -1,10 +1,12 @@
 """The MAT-norm kernels' launch plan (s2p_tpu_torch.gan.cuda_kernels.
 mat_norm_plan), which runs on the host and so is tested here on the CPU: at
-every norm shape of the two main paths (the 64px/ngf=64 generator at batch
-256, the 100px/ngf=64 one at batch 16), in bf16 and f32, forward and
-backward; the streaming path at 256²; and the choice of the scalar path
-from channel counts and alignment. The kernels themselves are held to
-their plain versions on the card by chip_smoke.py."""
+every norm shape of the main paths (the 64px/ngf=64 generator at batch 256
+serving, the 100px/ngf=64 one at batch 16 training and at batch 256 in the
+image bridge), in bf16 and f32, forward and backward (the bridge runs only
+the forward; its backward plans are held to the same rule); the streaming
+path at 256²; and the choice of the scalar path from channel counts and
+alignment. The kernels themselves are held to their plain versions on the
+card by chip_smoke.py."""
 
 from types import SimpleNamespace
 
@@ -31,7 +33,8 @@ def norm_shapes(image_size: int, ngf: int = 64) -> list:
 
 
 MAIN_PATHS = [(256, 64, h, c) for h, c in norm_shapes(64)] + \
-             [(16, 100, h, c) for h, c in norm_shapes(100)]
+             [(16, 100, h, c) for h, c in norm_shapes(100)] + \
+             [(256, 100, h, c) for h, c in norm_shapes(100)]
 
 
 def test_main_path_shapes_are_the_generators():
@@ -61,11 +64,27 @@ def test_plan_at_main_path_shape(batch, image_size, H, C, dtype, direction):
     assert plan.smem == (0 if small else slice_bytes) + ck.SCRATCH_BYTES_PER_CHANNEL * plan.tile_c
     assert plan.smem <= SMEM_PER_CTA
     assert C % plan.tile_c == 0 and plan.tile_c * dtype.itemsize // 16 in (2, 4, 8)
-    if H in (50, 100):  # (image, tile) groups alone would give these 32-64 CTAs
+    if H in (50, 100):  # at batch 16 (image, tile) groups alone would give 32-64 CTAs;
+        # at batch 256 they give enough, but a whole 50² or 100² slice does not fit
         assert plan.grid >= 256 and plan.cluster > 1
     if hw < ck.SPLIT_MIN_HW:  # small images: no cluster unless the slice needs one to fit
         assert plan.cluster == 1 or arrays * -(-hw // (plan.cluster // 2)) * plan.tile_c \
             * dtype.itemsize > ck.RESIDENT_BYTES
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_bridge_shapes_split_only_to_fit(dtype):
+    """The bridge's forward at batch 256: every (image, tile) group alone
+    already passes TARGET_CTAS, so no shape splits for occupancy; images of
+    50² and 100² split exactly as far as their slice needs to fit in
+    RESIDENT_BYTES, smaller ones not at all."""
+    for H, C in norm_shapes(100):
+        plan = ck.mat_norm_plan(256, H * H, C, dtype, "forward", True)
+        assert plan.path == "resident" and plan.vec, (H, C)
+        assert 256 * C // plan.tile_c >= ck.TARGET_CTAS
+        assert plan.cluster == next(
+            k for k in ck.CLUSTER_SIZES
+            if -(-H * H // k) * plan.tile_c * dtype.itemsize <= ck.RESIDENT_BYTES), (H, C)
 
 
 @pytest.mark.parametrize("direction", ["forward", "backward"])
