@@ -87,6 +87,34 @@ contiguous as the module path passes them) and times it there.
     ≥ 38 dB against the float fast path on the same card (the JAX test's
     bar), 13 launches per step (counts reset around the timed window);
     prints its frames/sec beside phase 5's.
+13. SLAC + IQL, card vs CPU: the shipped image-RL configuration at full
+    width (100px, 8-step windows, SLAC feature 256, z1 32, z2 256, heads
+    256 × 2; policy over feature_action and critic over z, 1024 × 2; seeded
+    weights) in f32 with TF32 off, on the card and on the CPU in f32 and
+    f64, from the same windows (batch 4) and posterior noise: one
+    ``latent_step`` (the three ELBO terms, every latent gradient) and one
+    IQL ``train()`` with its joint latent step (metrics, the policy, critic
+    and latent gradients, and the parameters after the step). The card's
+    f32 result must be as close to the f64 one as the CPU's f32 result is
+    (within 3×, or the floors of phase 7); after the Adam step, the share of
+    entries more than 1e-6 from f64 likewise (floor 1e-4), none more than
+    2·lr.
+14. SLAC pretraining (a main path): a seeded real 100px dataset of 10
+    episodes × 1,000 steps through ``ingest_real``; ``pretrain_latent`` at
+    batch 32 (cuDNN TF32 on, PyTorch's default): ELBO steps/sec over 300
+    timed steps, each loss at the first and the last of them (finite, the
+    total must fall), and a profile of one ELBO step (launches, idle share).
+15. S2P-augmented IQL + SLAC (a main path): one buffer, as
+    ``run_iql_image.sh`` fills it: the first 1,000 rows of phase 14's
+    dataset, and the first 1,000 rows of phase 11's augmented dataset with
+    the frames its bridge rendered, through ``ingest_generated`` with the
+    aleatoric penalty (λ 2); phase 14's latent; ``train_many`` at batch 128
+    with the joint latent step: IQL + SLAC steps/sec over 100 timed steps,
+    finite metrics, policy, critic and latent weights that moved, and a
+    profile of one step (launches, idle share). Neither SLAC path launches
+    a MAT-norm kernel (counts reset to 0 just before each timed window and
+    read just after it); the generation that fills the buffer is counted
+    in phase 11.
 
 ``--ab DIR`` runs phases 1 and 2, then times the MAT-norm kernels against
 those of the checkout in DIR in turns, then the two main paths end to end
@@ -98,8 +126,8 @@ bf16 main-path shape, and stops.
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` also writes a
 torch.profiler summary of one throughput rollout, of one bf16 train step,
-of four bridge batches, of 20 ensemble steps and of one ``gb_int8``
-rollout to DIR.
+of four bridge batches, of 20 ensemble steps, of one ``gb_int8`` rollout,
+of one ELBO step and of one IQL + SLAC step to DIR.
 """
 
 from __future__ import annotations
@@ -165,6 +193,21 @@ PIPE_EPISODES, PIPE_EPISODE_LEN, PIPE_TRAIN_STEPS = 500, 1000, 2000  # the refer
 PIPE_FRAMES = 16384  # frames rendered: 64 batches of 256 (all 500k: 15 GB of uint8 on the host)
 BRIDGE_MAX_DIFF, BRIDGE_DIFF_SHARE = 1, 0.01
 GB_INT8_PSNR, GB_INT8_ROLLOUTS = 38.0, 3  # tests/test_fast_inference.py:170
+# SLAC + IQL image RL at the shipped configuration (run_iql_image.sh,
+# s2p_tpu/cli/mujoco_finetune.py:180-188,254-267): cheetah (action dim 6),
+# 100px frames, 8-step windows, SLAC feature 256, z1 32, z2 256, heads
+# (256, 256), latent batch 32, Adam 1e-4; policy and critic (1024, 1024);
+# IQL batch 128, joint latent update every step
+SLAC_KW = dict(num_sequences=8, feature_dim=256, z1_dim=32, z2_dim=256, hidden_units=(256, 256),
+               image_size=BRIDGE_SIZE, lr_latent=1e-4)
+IQL_KW = dict(discount=0.99, policy_lr=1e-4, qf_lr=3e-4, reward_scale=1.0, beta=0.1,
+              quantile=0.7, clip_score=100.0, soft_target_tau=0.005, target_update_period=2)
+IQL_HIDDEN, IQL_BATCH, SLAC_BATCH = (1024, 1024), 128, 32
+SLAC_PARITY_BATCH = 4  # phase 13: windows per step on the card, the CPU f32 and the CPU f64
+SLAC_EPISODES, SLAC_EPISODE_LEN = 10, 1000  # phase 14's real dataset: 10k 100px frames
+PRETRAIN_STEPS, IQL_STEPS = 300, 100  # timed ELBO steps (phase 14), IQL + SLAC steps (15)
+SLAC_REAL_ROWS = SLAC_GEN_ROWS = 1000  # data_mix_num_real, data_mix_num_gen
+UNCERTAINTY_TYPE, UNCERTAINTY_LAMBDA = "aleatoric", 2.0
 
 
 def fail(msg: str) -> None:
@@ -452,7 +495,8 @@ KERNEL_KINDS = (
     ("MAT-norm backward kernel", ("fused_mat_norm_bwd",)),
     ("MAT-norm forward kernel", ("fused_mat_norm",)),
     ("cuDNN/cuBLAS convs and GEMMs", ("xmma", "cutlass", "cudnn", "nhwcAddPadding", "gemm",
-                                      "nchwToNhwc", "nhwcToNchw")),
+                                      "nchwToNhwc", "nhwcToNchw", "nvjet")),
+    ("random draws", ("distribution_elementwise", "philox")),
     ("reductions", ("reduce_kernel",)),
     ("copies, casts, cat, memsets", ("copy", "memcpy", "memset", "CatArray")),
     ("Adam (foreach)", ("multi_tensor_apply",)),
@@ -468,13 +512,12 @@ def kernel_kind(name: str) -> str:
     return "other elementwise"
 
 
-def profile_device(fn, out_dir: str, name: str) -> None:
+def profile_device(fn, out_dir: str | None, name: str) -> dict:
     """Device time by kernel and by kind over one call of ``fn``, and the
-    device's idle share of its wall time."""
+    device's idle share of its wall time; written to ``out_dir`` when given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    os.makedirs(out_dir, exist_ok=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -501,15 +544,18 @@ def profile_device(fn, out_dir: str, name: str) -> None:
                    device_idle_share=1 - busy_ms / wall_ms, launches=sum(r[2] for r in rows),
                    kinds={k: dict(ms=ms, count=c) for k, (ms, c) in kinds.items()},
                    kernels=[dict(name=n[:120], ms=ms, count=c) for n, ms, c in rows[:40]])
-    with open(os.path.join(out_dir, f"profile_{name}.json"), "w") as f:
-        json.dump(summary, f, indent=1)
-    prof.export_chrome_trace(os.path.join(out_dir, f"profile_{name}_trace.json"))
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, f"profile_{name}.json"), "w") as f:
+            json.dump(summary, f, indent=1)
+        prof.export_chrome_trace(os.path.join(out_dir, f"profile_{name}_trace.json"))
     print(f"profile: one {name} {wall_ms:.2f} ms wall, device busy {busy_ms:.2f} ms "
           f"(idle share {summary['device_idle_share']:.3f}), {summary['launches']} launches")
     for k, (ms, c) in kinds.items():
         print(f"  {ms:9.3f} ms  {100 * ms / busy_ms:5.1f}%  {c:5d}x  {k}")
     for n, ms, c in rows[:12]:
         print(f"  {ms:9.3f} ms  {c:5d}x  {n[:90]}")
+    return summary
 
 
 def phase_backward(ck, shapes) -> dict:
@@ -1113,7 +1159,10 @@ def phase_bridge_parity(ck, gen_cpu, gen_gpu) -> None:
         fail(f"bridge: {launches} forward launches for one batch, expected 13")
 
 
-def phase_pipeline(ck, gen, card: str, profile_dir: str | None) -> int:
+def phase_pipeline(ck, gen, card: str, profile_dir: str | None) -> tuple:
+    """Returns the forward launches, and the first ``SLAC_GEN_ROWS`` rows
+    of the augmented dataset with the real frames under them and the frames
+    the bridge rendered for them (phase 15's generated data)."""
     import numpy as np
     import torch
 
@@ -1195,7 +1244,10 @@ def phase_pipeline(ck, gen, card: str, profile_dir: str | None) -> int:
                 step(x[idx], y[idx])
 
         profile_device(steps, profile_dir, "ensemble_20_steps")
-    return launches
+    rows = SLAC_GEN_ROWS
+    generated = {k: v[:rows] for k, v in aug.items()}
+    generated["image_observations"] = frames_in[:rows]
+    return launches, generated, frames[:rows]
 
 
 def phase_gb_int8(ck, gen, card: str, serving_fps: float, profile_dir: str | None) -> int:
@@ -1252,6 +1304,227 @@ def phase_gb_int8(ck, gen, card: str, serving_fps: float, profile_dir: str | Non
         profile_device(lambda: generate_rollout_fast(gen, init, states, gb_int8=True),
                        profile_dir, "rollout_gb_int8")
     return launches
+
+
+def slac_dataset(n_episodes: int, episode_len: int, seed: int) -> dict:
+    """A seeded real 100px image-RL dataset in the schema ``ingest_real``
+    reads: uint8 frames, the next row's frame as ``image_observations_tp1``
+    (the last row repeats its own), uniform actions, normal rewards, a
+    timeout on each episode's last row."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    n = n_episodes * episode_len
+    imgs = rs.randint(0, 256, (n, BRIDGE_SIZE, BRIDGE_SIZE, 3), dtype=np.uint8)
+    timeouts = np.zeros(n, np.float32)
+    timeouts[episode_len - 1::episode_len] = 1.0
+    return dict(image_observations=imgs,
+                image_observations_tp1=np.concatenate([imgs[1:], imgs[-1:]]),
+                actions=rs.uniform(-1, 1, (n, ACT_DIM)).astype(np.float32),
+                rewards=rs.randn(n).astype(np.float32), timeouts=timeouts)
+
+
+def make_slac(device, batch_size_latent: int, buffer_size: int):
+    from s2p_tpu_torch.slac import SlacAlgorithm
+
+    return SlacAlgorithm(ACT_DIM, buffer_size=buffer_size, batch_size_latent=batch_size_latent,
+                         seed=0, device=device, **SLAC_KW)
+
+
+def make_iql(slac, dtype=None):
+    """The shipped IQL trainer over ``slac``: policy over feature_action,
+    critic over z, seeded weights (in ``dtype`` when given)."""
+    from s2p_tpu_torch.rl import CriticSLAC, IQLTrainer, TanhGaussianPolicy
+
+    policy = TanhGaussianPolicy(slac.feature_action_dim, IQL_HIDDEN, ACT_DIM, seed=1)
+    critic = CriticSLAC(slac.z_dim, ACT_DIM, IQL_HIDDEN, seed=2)
+    if dtype is not None:
+        policy, critic = policy.to(dtype), critic.to(dtype)
+    return IQLTrainer(policy, critic, slac_algo=slac, seed=0, device=slac.device, **IQL_KW)
+
+
+def _f64(named) -> dict:
+    return {k: t.detach().double().cpu() for k, t in named}
+
+
+def hold_to_f64(label: str, runs: dict, kind: str, lr: float = 0.0) -> None:
+    """The card's f32 result against the CPU's f64 one, as far as the CPU's
+    f32 result is (PARITY_SLACK times, or the floor). ``runs`` maps "cpu
+    f64", "cpu f32", "cuda f32" to dicts of floats (``kind`` "metric":
+    relative error), of gradient tensors ("grad": of the largest |gradient|)
+    or of parameters after one Adam step ("param": the share of entries off
+    by more than 1e-6, none by more than 2·lr + 1e-6, since Adam's first
+    step is lr·g/(|g| + ε) and a gradient within f32 noise of zero may move
+    its weight by anything from −lr to lr)."""
+    import torch
+
+    ref, cpu, got = runs["cpu f64"], runs["cpu f32"], runs["cuda f32"]
+    if sorted(got) != sorted(ref):
+        fail(f"{label}: keys {sorted(got)} on the card, {sorted(ref)} on the CPU")
+
+    def err(run):
+        if kind == "metric":
+            return max((abs(run[k] - r) / max(abs(r), 1e-30), k) for k, r in ref.items())
+        if kind == "grad":
+            scale = max(g.abs().max().item() for g in ref.values())
+            return max(((run[k] - r).abs().max().item() / scale, k) for k, r in ref.items())
+        diffs = [(run[k] - r).abs().flatten() for k, r in ref.items()]
+        d = torch.cat(diffs)
+        if d.max().item() > 2 * lr + 1e-6:
+            fail(f"{label}: an entry moved {d.max().item():.3g} from the f64 step (lr {lr})")
+        return (d > 1e-6).double().mean().item(), "share of entries"
+
+    (e_cpu, k_cpu), (e_got, k_got) = err(cpu), err(got)
+    floor = dict(metric=METRIC_FLOOR, grad=GRAD_FLOOR, param=1e-4)[kind]
+    print(f"slac parity {label} against f64: cuda {e_got:.3g} ({k_got}), cpu f32 {e_cpu:.3g} "
+          f"({k_cpu}); limit max({PARITY_SLACK} x cpu, {floor})")
+    if not e_got <= max(PARITY_SLACK * e_cpu, floor):
+        fail(f"{label}: the card's f32 step is {e_got:.3g} from f64 ({k_got}), the CPU's "
+             f"{e_cpu:.3g}")
+
+
+def phase_slac_parity() -> None:
+    """One ELBO step and one IQL + SLAC ``train()`` at full width, on the
+    card in f32 and on the CPU in f32 and f64, from the same seeded weights,
+    windows and posterior noise."""
+    import torch
+
+    from s2p_tpu_torch.data.replay import window_batch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = slac_dataset(1, 40, seed=51)
+    B, S = SLAC_PARITY_BATCH, SLAC_KW["num_sequences"]
+    gen = torch.Generator().manual_seed(52)
+
+    def noise():
+        return [torch.randn(B, d, generator=gen, dtype=torch.float64)
+                for _ in range(S + 1) for d in (SLAC_KW["z1_dim"], SLAC_KW["z2_dim"])]
+
+    elbo_noise, prepare_noise, latent_noise = noise(), noise(), noise()
+    idx_elbo, idx_batch, idx_latent = (torch.tensor(v) for v in
+                                       ([0, 7, 19, 30], [3, 11, 20, 28], [5, 9, 14, 31]))
+    names = ("loss_kld", "loss_image", "loss_reward")
+    out = {}
+    for name, device, dtype in (("cpu f64", "cpu", torch.float64), ("cpu f32", "cpu", torch.float32),
+                                ("cuda f32", "cuda", torch.float32)):
+        cast = lambda ts: [t.to(device, dtype) for t in ts]  # noqa: E731
+        t0 = time.time()
+        slac = make_slac(device, B, 64)
+        slac.latent.to(dtype)
+        slac.buffer.ingest_real(ds)
+        losses = slac.latent_step(*slac.buffer.gather(idx_elbo), cast(elbo_noise))
+        r = dict(elbo={k: v.item() for k, v in zip(names, losses)},
+                 elbo_grad=_f64((k, p.grad) for k, p in slac.latent.named_parameters()))
+        slac = make_slac(device, B, 64)
+        slac.latent.to(dtype)
+        slac.buffer.ingest_real(ds)
+        tr = make_iql(slac, dtype)
+        batch = window_batch(*slac.buffer.gather(idx_batch))
+        metrics = tr.train(batch, prepare_noise=cast(prepare_noise),
+                           latent_draws=(idx_latent, cast(latent_noise)))
+        r["iql"] = {k: v.item() for k, v in metrics.items()}
+        for mod, net in (("policy", tr.policy), ("critic", tr.critic), ("latent", slac.latent)):
+            r[f"{mod}_grad"] = _f64((k, p.grad) for k, p in net.named_parameters())
+            r[f"{mod}_param"] = _f64(net.named_parameters())
+        r["target_param"] = _f64(tr.target_q.named_parameters())
+        out[name] = r
+        print(f"slac parity {name}: ELBO step and IQL + SLAC step in {time.time() - t0:.1f} s; "
+              + ", ".join(f"{k} {v:.8g}" for k, v in sorted(r["elbo"].items())))
+    pick = lambda key: {n: r[key] for n, r in out.items()}  # noqa: E731
+    hold_to_f64("ELBO terms", pick("elbo"), "metric")
+    hold_to_f64("ELBO gradients", pick("elbo_grad"), "grad")
+    hold_to_f64("IQL + SLAC metrics", pick("iql"), "metric")
+    lrs = dict(policy=IQL_KW["policy_lr"], critic=IQL_KW["qf_lr"], latent=SLAC_KW["lr_latent"],
+               target=IQL_KW["qf_lr"])
+    for mod in ("policy", "critic", "latent"):
+        hold_to_f64(f"IQL + SLAC {mod} gradients", pick(f"{mod}_grad"), "grad")
+    for mod in ("policy", "critic", "target", "latent"):
+        hold_to_f64(f"IQL + SLAC {mod} parameters after the step", pick(f"{mod}_param"), "param",
+                    lr=lrs[mod])
+
+
+def phase_slac_pretrain(ck, card: str, profile_dir: str | None) -> dict:
+    import numpy as np
+    import torch
+
+    from s2p_tpu_torch.slac import pretrain_latent
+
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults, as phase 8
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.time()
+    ds = slac_dataset(SLAC_EPISODES, SLAC_EPISODE_LEN, seed=61)
+    algo = make_slac("cuda", SLAC_BATCH, len(ds["actions"]))
+    added = algo.buffer.ingest_real(ds)
+    algo.buffer.device_state()
+    print(f"slac pretrain: {len(ds['actions'])} real 100px rows ({SLAC_EPISODES} episodes), "
+          f"{added} windows, made, ingested and uploaded in {time.time() - t0:.1f} s")
+    algo.update_latent_many(3)  # cuDNN's first calls
+    torch.cuda.synchronize()
+
+    ck.fused_mat_norm.launches = ck.fused_mat_norm_bwd.launches = 0
+    t0 = time.perf_counter()
+    first = algo.update_latent()
+    last = pretrain_latent(algo, num_steps=PRETRAIN_STEPS - 1, log_every=100, scan_chunk=100,
+                           log_fn=lambda s: print(f"slac pretrain {s}"))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(launches=ck.fused_mat_norm.launches, bwd_launches=ck.fused_mat_norm_bwd.launches)
+    first = {k: float(v) for k, v in first.items()}
+    sps = PRETRAIN_STEPS / elapsed
+    print(f"slac pretrain ELBO (100px, batch {SLAC_BATCH} x 9 frames, feature 256, z 32 + 256, "
+          f"f32 with cuDNN TF32): {PRETRAIN_STEPS} steps in {elapsed:.2f} s, {sps:.2f} steps/sec "
+          f"on {card}; first step " + ", ".join(f"{k} {v:.2f}" for k, v in first.items())
+          + "; last step " + ", ".join(f"{k} {v:.2f}" for k, v in last.items()))
+    if not all(np.isfinite(v) for v in list(first.values()) + list(last.values())):
+        fail("slac pretrain: non-finite losses")
+    if not sum(last.values()) < sum(first.values()):
+        fail(f"slac pretrain: the ELBO did not fall ({first} -> {last})")
+    summary = profile_device(algo.update_latent, profile_dir, "elbo_step")
+    real = {k: v[:SLAC_REAL_ROWS] for k, v in ds.items()}
+    return dict(launches, sps=sps, step_launches=summary["launches"],
+                idle=summary["device_idle_share"], latent=algo.latent.state_dict(), real=real)
+
+
+def phase_iql(ck, card: str, pretrain: dict, generated: dict, generated_frames,
+              profile_dir: str | None) -> dict:
+    import torch
+
+    slac = make_slac("cuda", SLAC_BATCH, int(1.05e5))  # the finetune CLI's buffer
+    slac.latent.load_state_dict(pretrain["latent"])
+    n_real = slac.buffer.ingest_real(pretrain["real"])
+    slac.buffer.mark_real()
+    n_gen = slac.buffer.ingest_generated(generated, UNCERTAINTY_TYPE, UNCERTAINTY_LAMBDA,
+                                         generated_frames=generated_frames)
+    print(f"iql buffer: {n_real} real windows ({SLAC_REAL_ROWS} rows) + {n_gen} generated "
+          f"({SLAC_GEN_ROWS} rows of phase 11's augmented dataset, frames from its bridge, "
+          f"{UNCERTAINTY_TYPE} penalty lambda {UNCERTAINTY_LAMBDA}), one buffer")
+    tr = make_iql(slac)
+    tr.train_many(2, IQL_BATCH)  # cuDNN's first calls
+    torch.cuda.synchronize()
+    nets = dict(policy=tr.policy.fc0.weight, critic=tr.critic.qf1.fc0.weight,
+                latent=slac.latent.encoder.net[0].weight)
+    before = {k: v.detach().clone() for k, v in nets.items()}
+
+    ck.fused_mat_norm.launches = ck.fused_mat_norm_bwd.launches = 0
+    t0 = time.perf_counter()
+    metrics = tr.train_many(IQL_STEPS, IQL_BATCH)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(launches=ck.fused_mat_norm.launches, bwd_launches=ck.fused_mat_norm_bwd.launches)
+    sps = IQL_STEPS / elapsed
+    print(f"iql + slac train_many (batch {IQL_BATCH}, policy over feature_action 2090 -> 1024 x 2, "
+          f"critic over z 288, joint latent step at batch {SLAC_BATCH}): {IQL_STEPS} steps in "
+          f"{elapsed:.2f} s, {sps:.2f} steps/sec on {card}; last step "
+          + ", ".join(f"{k} {float(v):.4g}" for k, v in metrics.items()))
+    if not all(torch.isfinite(v) for v in metrics.values()):
+        fail("iql + slac: non-finite metrics")
+    still = [k for k, v in nets.items() if torch.equal(v, before[k])]
+    if still:
+        fail(f"iql + slac: {still} did not move")
+    summary = profile_device(lambda: tr.train_many(1, IQL_BATCH), profile_dir, "iql_slac_step")
+    return dict(launches, sps=sps, step_launches=summary["launches"],
+                idle=summary["device_idle_share"])
 
 
 def main() -> None:
@@ -1334,14 +1607,25 @@ def main() -> None:
     phase_bridge_parity(ck, gen100, gen100_gpu)
 
     # phase 11: the augmentation pipeline, a main path
-    bridge = phase_pipeline(ck, gen100_gpu, card, args.profile)
+    bridge, generated, generated_frames = phase_pipeline(ck, gen100_gpu, card, args.profile)
     del gen100_gpu
 
     # phase 12: gb_int8 on the serving generator
     gb_int8 = phase_gb_int8(ck, serving_gen, card, serving["fps"], args.profile)
+    del serving_gen, gen_gpu
+    torch.cuda.empty_cache()
+
+    # phase 13: one SLAC ELBO step and one IQL + SLAC step, card vs CPU
+    phase_slac_parity()
+
+    # phase 14: SLAC pretraining, a main path
+    pretrain = phase_slac_pretrain(ck, card, args.profile)
+
+    # phase 15: S2P-augmented IQL + SLAC, a main path
+    iql = phase_iql(ck, card, pretrain, generated, generated_frames, args.profile)
 
     by_path = dict(serving=serving["launches"], training=training["fwd"], bridge=bridge,
-                   gb_int8=gb_int8)
+                   gb_int8=gb_int8, slac_pretrain=pretrain["launches"], slac_iql=iql["launches"])
     fwd_record = dict(
         name="fused_mat_norm", route="cuda", source="s2p_tpu_torch/csrc/fused_mat_norm.cu",
         replaces="s2p_tpu/gan/pallas_kernels.py:49", launches=sum(by_path.values()),
@@ -1366,7 +1650,9 @@ def main() -> None:
     bwd_record = dict(
         name="fused_mat_norm_bwd", route="cuda", source="s2p_tpu_torch/csrc/fused_mat_norm.cu",
         replaces="s2p_tpu/gan/pallas_kernels.py:49", launches=training["bwd"],
-        launches_by_path=dict(serving=0, training=training["bwd"], bridge=0, gb_int8=0),
+        launches_by_path=dict(serving=0, training=training["bwd"], bridge=0, gb_int8=0,
+                              slac_pretrain=pretrain["bwd_launches"],
+                              slac_iql=iql["bwd_launches"]),
         max_abs_err=bwd["max_abs_err"], max_abs_err_bf16=bwd["max_abs_err_bf16"],
         ms=bwd["ms"], plain_ms=bwd["plain_ms"], bound_ms=bwd["bound_ms"], bound_by="bytes",
         library_ms=None, wall_ms=bwd["wall_ms"],

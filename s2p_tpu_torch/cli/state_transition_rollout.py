@@ -52,16 +52,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-class _NumpyOnlyUnpickler(pickle.Unpickler):
-    """Refuses JAX and flax objects, whose unpickling would import JAX."""
-
-    def find_class(self, module: str, name: str):
-        if module.split(".")[0] in ("jax", "jaxlib", "flax"):
-            raise ValueError(f"the pickle holds {module}.{name}: write the parameters with "
-                             "numpy leaves, pickle.dump(jax.device_get(params), f)")
-        return super().find_class(module, name)
-
-
 def _looks_torch(path: str) -> bool:
     with open(path, "rb") as f:
         return f.read(2) == b"PK"  # torch's zip serialization
@@ -70,14 +60,13 @@ def _looks_torch(path: str) -> bool:
 def load_ensemble_state_dict(path: str) -> dict:
     """The port's state dict from a torch file or a pickled JAX tree."""
     from s2p_tpu_torch.gan.convert import load_pth
+    from s2p_tpu_torch.utils.checkpoint import load_numpy_pickle
     from s2p_tpu_torch.world_model import split_saved, state_dict_from_jax_ensemble_params
 
     if path.endswith(".pth") or _looks_torch(path):
         sd, _ = split_saved(load_pth(path))
         return {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
-    with open(path, "rb") as f:
-        tree = _NumpyOnlyUnpickler(f).load()
-    return state_dict_from_jax_ensemble_params(tree)
+    return state_dict_from_jax_ensemble_params(load_numpy_pickle(path))
 
 
 def ensemble_training_arrays(ds: dict, normalization: dict) -> tuple:

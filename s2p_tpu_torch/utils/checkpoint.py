@@ -2,12 +2,14 @@
 
 The port of ``s2p_tpu/utils/checkpoint.py``, with ``torch.save`` in place of
 orbax: one ``step_{N}.pt`` per saved step in ``directory``, written to a
-temporary file and renamed, the newest ``max_to_keep`` kept.
+temporary file and renamed, the newest ``max_to_keep`` kept. Also the
+reader of the JAX package's pickled parameter trees (``load_numpy_pickle``).
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 import re
 import tempfile
 from typing import Any, List, Optional
@@ -54,3 +56,21 @@ class CheckpointManager:
     def latest_step(self) -> Optional[int]:
         steps = self.steps()
         return steps[-1] if steps else None
+
+
+class _NumpyOnlyUnpickler(pickle.Unpickler):
+    """Refuses JAX and flax objects, whose unpickling would import JAX."""
+
+    def find_class(self, module: str, name: str):
+        if module.split(".")[0] in ("jax", "jaxlib", "flax"):
+            raise ValueError(f"the pickle holds {module}.{name}: write the parameters with "
+                             "numpy leaves, pickle.dump(jax.device_get(params), f)")
+        return super().find_class(module, name)
+
+
+def load_numpy_pickle(path: str) -> Any:
+    """A pickled parameter tree with numpy leaves (what the JAX package
+    writes after ``jax.device_get``); a pickle of ``jax.Array``s is refused
+    without importing JAX."""
+    with open(path, "rb") as f:
+        return _NumpyOnlyUnpickler(f).load()

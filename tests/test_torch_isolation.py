@@ -43,7 +43,14 @@ def test_port_imports_nothing_of_jax():
             "s2p_tpu_torch.cli.train_gan", "s2p_tpu_torch.world_model",
             "s2p_tpu_torch.world_model.ensemble", "s2p_tpu_torch.world_model.rollout",
             "s2p_tpu_torch.cli.state_transition_rollout", "s2p_tpu_torch.cli.generate_images",
-            "s2p_tpu_torch.cli.generate_rl_dataset"} <= set(report["modules"])
+            "s2p_tpu_torch.cli.generate_rl_dataset", "s2p_tpu_torch.nn",
+            "s2p_tpu_torch.nn.initializers", "s2p_tpu_torch.nn.distributions",
+            "s2p_tpu_torch.nn.mlp", "s2p_tpu_torch.nn.cnn", "s2p_tpu_torch.nn.convert",
+            "s2p_tpu_torch.slac", "s2p_tpu_torch.slac.latent", "s2p_tpu_torch.slac.convert",
+            "s2p_tpu_torch.slac.algo", "s2p_tpu_torch.slac.pretrain",
+            "s2p_tpu_torch.data.replay", "s2p_tpu_torch.rl", "s2p_tpu_torch.rl.critics",
+            "s2p_tpu_torch.rl.policies", "s2p_tpu_torch.rl.scan_utils", "s2p_tpu_torch.rl.iql",
+            "s2p_tpu_torch.cli.slac_pretrain"} <= set(report["modules"])
 
 
 def test_cli_without_cpu_flag_needs_cuda(monkeypatch, tmp_path):
@@ -79,3 +86,20 @@ def test_trainer_defaults_to_the_card():
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             GANTrainer.create(17, **kw)
+
+
+def test_slac_and_iql_default_to_the_card():
+    from s2p_tpu_torch.rl import CriticSLAC, IQLTrainer, TanhGaussianPolicy
+    from s2p_tpu_torch.slac import SlacAlgorithm
+
+    kw = dict(num_sequences=2, buffer_size=10, feature_dim=8, z1_dim=2, z2_dim=4,
+              hidden_units=(8, 8))
+    nets = lambda: (TanhGaussianPolicy(4, (8,), 3), CriticSLAC(4, 3, (8,)))  # noqa: E731
+    if torch.cuda.is_available():
+        assert SlacAlgorithm(3, **kw).device.type == "cuda"
+        assert next(IQLTrainer(*nets()).policy.parameters()).is_cuda
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            SlacAlgorithm(3, **kw)
+        with pytest.raises((RuntimeError, AssertionError)):
+            IQLTrainer(*nets())
