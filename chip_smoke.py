@@ -116,6 +116,33 @@ contiguous as the module path passes them) and times it there.
     read just after it); the generation that fills the buffer is counted
     in phase 11.
 
+16. CQL and SAC, card vs CPU: one full-width CQL + SLAC ``train()`` in
+    the ``run_cql_image.sh`` configuration (phase 13's SLAC, policy over
+    feature_action and critic over z, 1024 × 2, ``num_random`` 10,
+    ``min_q_version`` 3, ``min_q_weight`` 5; batch 4, data actions at the
+    atanh clip ±1) twice: the BC warm-up (``policy_eval_start`` 40,000)
+    without the Lagrange α′, and SAC's policy loss (0) with it; then one
+    state SAC step at ``collect_dataset.py``'s width (cheetah obs 17,
+    action 6, policy and critic 256 × 2, batch 256). f32 with TF32 off on
+    the card and on the CPU in f32 and f64, from one set of host draws;
+    held as phase 13 holds its steps.
+17. S2P-augmented CQL + SLAC (a main path): phase 15's buffer (1,000 real
+    + 1,000 generated rows, aleatoric λ 2) and phase 14's latent;
+    ``train_many`` at batch 128 with the joint latent step: CQL + SLAC
+    steps/sec over 100 timed steps, finite metrics, moved policy, critic
+    and latent weights, a profile of one step (launches, idle share), no
+    MAT-norm launch (counts reset just before the timed window and read
+    just after it).
+18. evaluation metrics: ``inception_fid_extractor`` pool3 features of a
+    320² input (downsampled to 299²), calibrated ``LPIPSMetric`` distances
+    and ``PerceptualMetric`` distances (64px), seeded weights, held card f32
+    vs CPU f32 and f64 as phase 13 holds its steps; then (a main path,
+    counts reset around it) ``evaluate_pairs(perceptual=LPIPSMetric)`` over
+    the 2,048 64px frames of one phase-5 rollout against 2,048 seeded
+    frames at batch 256 (LPIPS pairs/sec), the extractor over both sets
+    (FID images/sec), ``compute_fid`` of the two, and a profile of one
+    extraction batch.
+
 ``--ab DIR`` runs phases 1 and 2, then times the MAT-norm kernels against
 those of the checkout in DIR in turns, then the two main paths end to end
 (serving frames/sec, bf16 and f32 train step), each side in processes of
@@ -127,7 +154,8 @@ The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` also writes a
 torch.profiler summary of one throughput rollout, of one bf16 train step,
 of four bridge batches, of 20 ensemble steps, of one ``gb_int8`` rollout,
-of one ELBO step and of one IQL + SLAC step to DIR.
+of one ELBO step, of one IQL + SLAC step, of one CQL + SLAC step, of one
+LPIPS batch and of one FID extraction batch to DIR.
 """
 
 from __future__ import annotations
@@ -208,6 +236,20 @@ SLAC_EPISODES, SLAC_EPISODE_LEN = 10, 1000  # phase 14's real dataset: 10k 100px
 PRETRAIN_STEPS, IQL_STEPS = 300, 100  # timed ELBO steps (phase 14), IQL + SLAC steps (15)
 SLAC_REAL_ROWS = SLAC_GEN_ROWS = 1000  # data_mix_num_real, data_mix_num_gen
 UNCERTAINTY_TYPE, UNCERTAINTY_LAMBDA = "aleatoric", 2.0
+# CQL + SLAC at run_cql_image.sh's configuration (s2p_tpu/cli/mujoco_finetune.py:254-275):
+# IQL's networks and batch, the CLI's CQL defaults
+CQL_KW = dict(discount=0.99, policy_lr=1e-4, qf_lr=3e-4, reward_scale=1.0, soft_target_tau=5e-3,
+              policy_eval_start=40_000, temp=1.0, min_q_version=3, min_q_weight=5.0,
+              num_random=10)
+CQL_PARITY_CASES = ((False, 40_000), (True, 0))  # (with_lagrange, policy_eval_start)
+CQL_STEPS = 100  # timed CQL + SLAC steps (phase 17)
+# SAC at collect_dataset.py:56-61 (cheetah obs 17, action 6, 256 x 2, batch 256)
+SAC_HIDDEN, SAC_BATCH = (256, 256), 256
+# evaluation metrics (phase 18): one phase-5 rollout's frames at batch 256
+EVAL_BATCH, EVAL_PARITY_SIZE = 256, 320
+LPIPS_CHANNELS = (64, 128, 256, 512, 512)
+PARITY_RUNS = (("cpu f64", "cpu", "float64"), ("cpu f32", "cpu", "float32"),
+               ("cuda f32", "cuda", "float32"))
 
 
 def fail(msg: str) -> None:
@@ -487,7 +529,7 @@ def phase_throughput(ck, gen, card: str, profile_dir: str | None) -> dict:
     if profile_dir:
         profile_device(lambda: generate_rollout_fast(gen, init, states), profile_dir,
                        "rollout")
-    return dict(launches=launches, fps=fps)
+    return dict(launches=launches, fps=fps, frames=frames)
 
 
 # kinds of device work, by kernel name (first match wins)
@@ -1331,16 +1373,32 @@ def make_slac(device, batch_size_latent: int, buffer_size: int):
                          seed=0, device=device, **SLAC_KW)
 
 
-def make_iql(slac, dtype=None):
-    """The shipped IQL trainer over ``slac``: policy over feature_action,
-    critic over z, seeded weights (in ``dtype`` when given)."""
-    from s2p_tpu_torch.rl import CriticSLAC, IQLTrainer, TanhGaussianPolicy
+def slac_rl_nets(slac, dtype=None):
+    """The shipped policy over feature_action and critic over z (1024 x 2),
+    seeded weights (in ``dtype`` when given)."""
+    from s2p_tpu_torch.rl import CriticSLAC, TanhGaussianPolicy
 
     policy = TanhGaussianPolicy(slac.feature_action_dim, IQL_HIDDEN, ACT_DIM, seed=1)
     critic = CriticSLAC(slac.z_dim, ACT_DIM, IQL_HIDDEN, seed=2)
     if dtype is not None:
         policy, critic = policy.to(dtype), critic.to(dtype)
-    return IQLTrainer(policy, critic, slac_algo=slac, seed=0, device=slac.device, **IQL_KW)
+    return policy, critic
+
+
+def make_iql(slac, dtype=None):
+    """The shipped IQL trainer over ``slac``."""
+    from s2p_tpu_torch.rl import IQLTrainer
+
+    return IQLTrainer(*slac_rl_nets(slac, dtype), slac_algo=slac, seed=0, device=slac.device,
+                      **IQL_KW)
+
+
+def make_cql(slac, dtype=None, **kw):
+    """The shipped CQL trainer over ``slac`` (``kw`` over ``CQL_KW``)."""
+    from s2p_tpu_torch.rl import CQLTrainer
+
+    return CQLTrainer(*slac_rl_nets(slac, dtype), slac_algo=slac, seed=0, device=slac.device,
+                      **dict(CQL_KW, **kw))
 
 
 def _f64(named) -> dict:
@@ -1376,7 +1434,7 @@ def hold_to_f64(label: str, runs: dict, kind: str, lr: float = 0.0) -> None:
 
     (e_cpu, k_cpu), (e_got, k_got) = err(cpu), err(got)
     floor = dict(metric=METRIC_FLOOR, grad=GRAD_FLOOR, param=1e-4)[kind]
-    print(f"slac parity {label} against f64: cuda {e_got:.3g} ({k_got}), cpu f32 {e_cpu:.3g} "
+    print(f"parity {label} against f64: cuda {e_got:.3g} ({k_got}), cpu f32 {e_cpu:.3g} "
           f"({k_cpu}); limit max({PARITY_SLACK} x cpu, {floor})")
     if not e_got <= max(PARITY_SLACK * e_cpu, floor):
         fail(f"{label}: the card's f32 step is {e_got:.3g} from f64 ({k_got}), the CPU's "
@@ -1486,20 +1544,25 @@ def phase_slac_pretrain(ck, card: str, profile_dir: str | None) -> dict:
                 idle=summary["device_idle_share"], latent=algo.latent.state_dict(), real=real)
 
 
-def phase_iql(ck, card: str, pretrain: dict, generated: dict, generated_frames,
-              profile_dir: str | None) -> dict:
+def phase_slac_rl(ck, card: str, name: str, make_trainer, steps: int, pretrain: dict,
+                  generated: dict, generated_frames, profile_dir: str | None) -> dict:
+    """``steps`` timed ``train_many`` steps of ``make_trainer(slac)`` (name
+    "iql" or "cql") over one buffer as ``run_{name}_image.sh`` fills it,
+    from phase 14's latent."""
     import torch
 
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults, as phase 14
+    torch.backends.cuda.matmul.allow_tf32 = False
     slac = make_slac("cuda", SLAC_BATCH, int(1.05e5))  # the finetune CLI's buffer
     slac.latent.load_state_dict(pretrain["latent"])
     n_real = slac.buffer.ingest_real(pretrain["real"])
     slac.buffer.mark_real()
     n_gen = slac.buffer.ingest_generated(generated, UNCERTAINTY_TYPE, UNCERTAINTY_LAMBDA,
                                          generated_frames=generated_frames)
-    print(f"iql buffer: {n_real} real windows ({SLAC_REAL_ROWS} rows) + {n_gen} generated "
+    print(f"{name} buffer: {n_real} real windows ({SLAC_REAL_ROWS} rows) + {n_gen} generated "
           f"({SLAC_GEN_ROWS} rows of phase 11's augmented dataset, frames from its bridge, "
           f"{UNCERTAINTY_TYPE} penalty lambda {UNCERTAINTY_LAMBDA}), one buffer")
-    tr = make_iql(slac)
+    tr = make_trainer(slac)
     tr.train_many(2, IQL_BATCH)  # cuDNN's first calls
     torch.cuda.synchronize()
     nets = dict(policy=tr.policy.fc0.weight, critic=tr.critic.qf1.fc0.weight,
@@ -1508,23 +1571,208 @@ def phase_iql(ck, card: str, pretrain: dict, generated: dict, generated_frames,
 
     ck.fused_mat_norm.launches = ck.fused_mat_norm_bwd.launches = 0
     t0 = time.perf_counter()
-    metrics = tr.train_many(IQL_STEPS, IQL_BATCH)
+    metrics = tr.train_many(steps, IQL_BATCH)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(launches=ck.fused_mat_norm.launches, bwd_launches=ck.fused_mat_norm_bwd.launches)
-    sps = IQL_STEPS / elapsed
-    print(f"iql + slac train_many (batch {IQL_BATCH}, policy over feature_action 2090 -> 1024 x 2, "
-          f"critic over z 288, joint latent step at batch {SLAC_BATCH}): {IQL_STEPS} steps in "
-          f"{elapsed:.2f} s, {sps:.2f} steps/sec on {card}; last step "
+    sps = steps / elapsed
+    print(f"{name} + slac train_many (batch {IQL_BATCH}, policy over feature_action 2090 -> "
+          f"1024 x 2, critic over z 288, joint latent step at batch {SLAC_BATCH}): {steps} "
+          f"steps in {elapsed:.2f} s, {sps:.2f} steps/sec on {card}; last step "
           + ", ".join(f"{k} {float(v):.4g}" for k, v in metrics.items()))
     if not all(torch.isfinite(v) for v in metrics.values()):
-        fail("iql + slac: non-finite metrics")
+        fail(f"{name} + slac: non-finite metrics")
     still = [k for k, v in nets.items() if torch.equal(v, before[k])]
     if still:
-        fail(f"iql + slac: {still} did not move")
-    summary = profile_device(lambda: tr.train_many(1, IQL_BATCH), profile_dir, "iql_slac_step")
+        fail(f"{name} + slac: {still} did not move")
+    if launches["launches"] or launches["bwd_launches"]:
+        fail(f"{name} + slac launched the MAT-norm kernels: {launches}")
+    summary = profile_device(lambda: tr.train_many(1, IQL_BATCH), profile_dir,
+                             f"{name}_slac_step")
     return dict(launches, sps=sps, step_launches=summary["launches"],
                 idle=summary["device_idle_share"])
+
+
+def phase_cql_sac_parity() -> None:
+    """One full-width CQL + SLAC ``train()`` per ``CQL_PARITY_CASES`` and
+    one state SAC step, on the card in f32 and on the CPU in f32 and f64,
+    from the same seeded weights, windows and draws."""
+    import numpy as np
+    import torch
+
+    from s2p_tpu_torch.data.replay import window_batch
+    from s2p_tpu_torch.rl import CriticSLAC, SACTrainer, TanhGaussianPolicy
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = slac_dataset(1, 40, seed=71)
+    B, S, N, A = SLAC_PARITY_BATCH, SLAC_KW["num_sequences"], CQL_KW["num_random"], ACT_DIM
+    gen = torch.Generator().manual_seed(72)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, dtype=torch.float64)  # noqa: E731
+
+    def noise():
+        return [randn(B, d) for _ in range(S + 1) for d in (SLAC_KW["z1_dim"], SLAC_KW["z2_dim"])]
+
+    idx_batch, idx_latent = torch.tensor([3, 11, 20, 28]), torch.tensor([5, 9, 14, 31])
+    pick = lambda out, key: {n: r[key] for n, r in out.items()}  # noqa: E731
+    lrs = dict(policy=CQL_KW["policy_lr"], critic=CQL_KW["qf_lr"], latent=SLAC_KW["lr_latent"],
+               target=CQL_KW["qf_lr"])
+    for lagrange, eval_start in CQL_PARITY_CASES:
+        label = (f"CQL + SLAC ({'BC warm-up' if eval_start else 'SAC policy loss'}, "
+                 f"Lagrange {'on' if lagrange else 'off'})")
+        draws = dict(posterior=noise(), pi=randn(B, A), next=randn(B, A),
+                     random=torch.rand(B * N, A, generator=gen, dtype=torch.float64) * 2 - 1,
+                     pi_tiled=randn(B * N, A), next_tiled=randn(B * N, A))
+        latent_noise = noise()
+        out = {}
+        for name, device, dtype in PARITY_RUNS:
+            dtype = getattr(torch, dtype)
+            t0 = time.time()
+            slac = make_slac(device, B, 64)
+            slac.latent.to(dtype)
+            slac.buffer.ingest_real(ds)
+            tr = make_cql(slac, dtype, with_lagrange=lagrange, policy_eval_start=eval_start)
+            batch = window_batch(*slac.buffer.gather(idx_batch))
+            batch["actions"][:, -1, 0], batch["actions"][0, -1, 1] = 1.0, -1.0  # the atanh clip
+            metrics = tr.train(batch, draws=draws, latent_draws=(
+                idx_latent, [t.to(device, dtype) for t in latent_noise]))
+            r = dict(metrics={k: v.item() for k, v in metrics.items()})
+            r["metrics"].update(log_alpha=tr.log_alpha.item(),
+                                log_alpha_prime=tr.log_alpha_prime.item())
+            for mod, net in (("policy", tr.policy), ("critic", tr.critic), ("latent", slac.latent)):
+                r[f"{mod}_grad"] = _f64((k, p.grad) for k, p in net.named_parameters()
+                                        if p.grad is not None)
+                r[f"{mod}_param"] = _f64(net.named_parameters())
+            r["target_param"] = _f64(tr.target_q.named_parameters())
+            out[name] = r
+            print(f"parity {label} {name}: train() in {time.time() - t0:.1f} s; "
+                  + ", ".join(f"{k} {v:.8g}" for k, v in sorted(r["metrics"].items())))
+        if ("alpha_prime" in out["cuda f32"]["metrics"]) != lagrange:
+            fail(f"{label}: alpha_prime logged {not lagrange}")
+        hold_to_f64(f"{label} metrics", pick(out, "metrics"), "metric")
+        for mod in ("policy", "critic", "latent"):
+            hold_to_f64(f"{label} {mod} gradients", pick(out, f"{mod}_grad"), "grad")
+        for mod in ("policy", "critic", "target", "latent"):
+            hold_to_f64(f"{label} {mod} parameters after the step", pick(out, f"{mod}_param"),
+                        "param", lr=lrs[mod])
+
+    rs = np.random.RandomState(73)
+    n = SAC_BATCH
+    batch = dict(observations=rs.randn(n, STATE_DIM), actions=rs.uniform(-1, 1, (n, ACT_DIM)),
+                 rewards=rs.randn(n, 1), terminals=(rs.rand(n, 1) < 0.1).astype(np.float64),
+                 next_observations=rs.randn(n, STATE_DIM))
+    draws = dict(pi=rs.randn(n, ACT_DIM), next=rs.randn(n, ACT_DIM))
+    out = {}
+    for name, device, dtype in PARITY_RUNS:
+        dtype = getattr(torch, dtype)
+        policy = TanhGaussianPolicy(STATE_DIM, SAC_HIDDEN, ACT_DIM, seed=3).to(dtype)
+        critic = CriticSLAC(STATE_DIM, ACT_DIM, SAC_HIDDEN, seed=4).to(dtype)
+        tr = SACTrainer(policy, critic, seed=0, device=device)
+        r = dict(metrics={k: v.item() for k, v in tr.train(batch, draws=draws).items()})
+        for mod, net in (("policy", tr.policy), ("critic", tr.critic)):
+            r[f"{mod}_grad"] = _f64((k, p.grad) for k, p in net.named_parameters()
+                                    if p.grad is not None)
+            r[f"{mod}_param"] = _f64(net.named_parameters())
+        out[name] = r
+    hold_to_f64("SAC (state, 256 x 2, batch 256) metrics", pick(out, "metrics"), "metric")
+    for mod in ("policy", "critic"):
+        hold_to_f64(f"SAC {mod} gradients", pick(out, f"{mod}_grad"), "grad")
+        hold_to_f64(f"SAC {mod} parameters after the step", pick(out, f"{mod}_param"), "param",
+                    lr=3e-4)
+
+
+def phase_eval_metrics(ck, card: str, fake_frames, profile_dir: str | None) -> dict:
+    """Card vs CPU for the three metric networks, then LPIPS pairs/sec and
+    FID images/sec over ``fake_frames`` (one phase-5 rollout) against as
+    many seeded frames."""
+    import numpy as np
+    import torch
+
+    from s2p_tpu_torch.gan.inception import (
+        InceptionV3Features,
+        inception_fid_extractor,
+        resize_bilinear,
+    )
+    from s2p_tpu_torch.gan.metrics import PerceptualMetric, compute_fid, evaluate_pairs
+    from s2p_tpu_torch.gan.perceptual import LPIPSMetric
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rs = np.random.RandomState(81)
+    big = rs.uniform(-1, 1, (2, EVAL_PARITY_SIZE, EVAL_PARITY_SIZE, 3))
+    a, b = (rs.uniform(-1, 1, (4, 64, 64, 3)) for _ in range(2))
+    lin = [rs.rand(c).astype(np.float32) for c in LPIPS_CHANNELS]
+    out = {}
+    for name, device, dtype in PARITY_RUNS:
+        dtype = getattr(torch, dtype)
+        t0 = time.time()
+        x = torch.from_numpy(big).to(device, dtype)
+        if device == "cuda":
+            feats = inception_fid_extractor(seed=0, device=device)(x)
+        else:
+            with torch.no_grad():
+                feats = InceptionV3Features(seed=0, device=device).to(dtype)(resize_bilinear(x))
+        lpips = LPIPSMetric(lin_weights=lin, seed=0, device=device)
+        lpips.vgg.to(dtype)
+        perceptual = PerceptualMetric(seed=0, device=device)
+        perceptual.vgg.to(dtype)
+        out[name] = dict(inception={"pool3": feats.double().cpu()},
+                         lpips={"lpips": lpips(a, b).double().cpu()},
+                         perceptual={"perceptual": perceptual(a, b).double().cpu()})
+        print(f"parity eval metrics {name}: in {time.time() - t0:.1f} s; pool3 |max| "
+              f"{feats.abs().max().item():.6g}, lpips {out[name]['lpips']['lpips'].tolist()}")
+    for key, label in (("inception", f"Inception pool3 features ({EVAL_PARITY_SIZE}px -> 299px)"),
+                       ("lpips", "LPIPS distances (calibrated, 64px)"),
+                       ("perceptual", "perceptual distances (VGG19, 64px)")):
+        hold_to_f64(label, {n: r[key] for n, r in out.items()}, "grad")
+
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults, as phase 8
+    fake = fake_frames.reshape(-1, 64, 64, 3)
+    n = len(fake)
+    g = torch.Generator(device="cuda").manual_seed(82)
+    real = torch.rand(n, 64, 64, 3, device="cuda", generator=g) * 2 - 1
+    lpips = LPIPSMetric(lin_weights=lin, seed=0, device="cuda")
+    extract = inception_fid_extractor(seed=0, device="cuda")
+
+    fake_b, real_b = ([t[i:i + EVAL_BATCH] for i in range(0, n, EVAL_BATCH)] for t in (fake, real))
+    evaluate_pairs(fake_b[0], real_b[0], perceptual=lpips)  # cuDNN's first calls
+    extract(real_b[0])
+    torch.cuda.synchronize()
+    ck.fused_mat_norm.launches = ck.fused_mat_norm_bwd.launches = 0
+    t0 = time.perf_counter()
+    pairs = [evaluate_pairs(f, r, perceptual=lpips) for f, r in zip(fake_b, real_b)]
+    torch.cuda.synchronize()
+    lpips_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    feats = [extract(x) for x in real_b + fake_b]
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fid = compute_fid(extract, real_b, fake_b)
+    fid_s = time.perf_counter() - t0
+    launches = dict(launches=ck.fused_mat_norm.launches,
+                    bwd_launches=ck.fused_mat_norm_bwd.launches)
+    mean = {k: float(np.mean([p[k] for p in pairs])) for k in pairs[0]}
+    pps, ips = n / lpips_s, 2 * n / extract_s
+    print(f"eval evaluate_pairs(perceptual=LPIPSMetric) 64px batch {EVAL_BATCH}: {n} pairs in "
+          f"{lpips_s:.3f} s, {pps:.1f} LPIPS pairs/sec on {card}; "
+          + ", ".join(f"{k} {v:.6g}" for k, v in mean.items()))
+    print(f"eval inception_fid_extractor 64px -> 299px batch {EVAL_BATCH}: {2 * n} images in "
+          f"{extract_s:.3f} s, {ips:.1f} FID images/sec on {card}; compute_fid (extraction and "
+          f"scipy sqrtm of 2048 x 2048) {fid_s:.2f} s, FID {fid:.6g} (seeded weights)")
+    if not all(np.isfinite(v) for v in mean.values()) or not mean["lpips_vgg"] > 0:
+        fail(f"eval metrics: bad pair metrics {mean}")
+    if any(f.shape != (EVAL_BATCH, 2048) or not torch.isfinite(f).all() for f in feats):
+        fail("eval metrics: bad pool3 features")
+    if not (np.isfinite(fid) and fid >= 0):
+        fail(f"eval metrics: FID {fid}")
+    if launches["launches"] or launches["bwd_launches"]:
+        fail(f"eval metrics launched the MAT-norm kernels: {launches}")
+    lp = profile_device(lambda: evaluate_pairs(fake_b[0], real_b[0], perceptual=lpips),
+                        profile_dir, "lpips_batch")
+    ex = profile_device(lambda: extract(real_b[0]), profile_dir, "fid_extract_batch")
+    return dict(launches, pps=pps, ips=ips, fid=fid, lpips_idle=lp["device_idle_share"],
+                extract_idle=ex["device_idle_share"])
 
 
 def main() -> None:
@@ -1622,10 +1870,22 @@ def main() -> None:
     pretrain = phase_slac_pretrain(ck, card, args.profile)
 
     # phase 15: S2P-augmented IQL + SLAC, a main path
-    iql = phase_iql(ck, card, pretrain, generated, generated_frames, args.profile)
+    iql = phase_slac_rl(ck, card, "iql", make_iql, IQL_STEPS, pretrain, generated,
+                        generated_frames, args.profile)
+
+    # phase 16: one CQL + SLAC step (two configurations) and one SAC step, card vs CPU
+    phase_cql_sac_parity()
+
+    # phase 17: S2P-augmented CQL + SLAC, a main path
+    cql = phase_slac_rl(ck, card, "cql", make_cql, CQL_STEPS, pretrain, generated,
+                        generated_frames, args.profile)
+
+    # phase 18: the evaluation metrics, card vs CPU, then LPIPS and FID rates (a main path)
+    evals = phase_eval_metrics(ck, card, serving["frames"], args.profile)
 
     by_path = dict(serving=serving["launches"], training=training["fwd"], bridge=bridge,
-                   gb_int8=gb_int8, slac_pretrain=pretrain["launches"], slac_iql=iql["launches"])
+                   gb_int8=gb_int8, slac_pretrain=pretrain["launches"], slac_iql=iql["launches"],
+                   cql_slac=cql["launches"], eval_metrics=evals["launches"])
     fwd_record = dict(
         name="fused_mat_norm", route="cuda", source="s2p_tpu_torch/csrc/fused_mat_norm.cu",
         replaces="s2p_tpu/gan/pallas_kernels.py:49", launches=sum(by_path.values()),
@@ -1652,7 +1912,8 @@ def main() -> None:
         replaces="s2p_tpu/gan/pallas_kernels.py:49", launches=training["bwd"],
         launches_by_path=dict(serving=0, training=training["bwd"], bridge=0, gb_int8=0,
                               slac_pretrain=pretrain["bwd_launches"],
-                              slac_iql=iql["bwd_launches"]),
+                              slac_iql=iql["bwd_launches"], cql_slac=cql["bwd_launches"],
+                              eval_metrics=evals["bwd_launches"]),
         max_abs_err=bwd["max_abs_err"], max_abs_err_bf16=bwd["max_abs_err_bf16"],
         ms=bwd["ms"], plain_ms=bwd["plain_ms"], bound_ms=bwd["bound_ms"], bound_by="bytes",
         library_ms=None, wall_ms=bwd["wall_ms"],

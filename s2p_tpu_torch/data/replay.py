@@ -64,6 +64,17 @@ def draw_indices(low: int, high: int, batch_size: int, generator: torch.Generato
 class SlacReplayBuffer:
     """Episode-aware sequence replay over an indexed frame pool."""
 
+    # random_batch(batch_size, generator=...): indices drawn on the device
+    # from a torch.Generator (the JAX package's "key"). The loops dispatch on
+    # this attribute, not on the presence of device_state(), which
+    # SimpleReplayBuffer also has.
+    sampling_style = "generator"
+
+    @property
+    def scannable(self) -> bool:
+        """device_state() is available to the trainers' on-device samplers."""
+        return True
+
     def __init__(self, capacity: int, num_sequences: int, frame_shape: Tuple[int, int, int],
                  action_dim: int, device: str | torch.device = "cuda") -> None:
         self.capacity = int(capacity)
@@ -307,6 +318,15 @@ class SlacReplayBuffer:
 class SimpleReplayBuffer:
     """Flat transition ring buffer with optional uint8 image observations
     and memory-efficient frame-stack next-observation reconstruction."""
+
+    # random_batch(batch_size, rng=...): rows drawn on the host with numpy
+    sampling_style = "rng"
+
+    @property
+    def scannable(self) -> bool:
+        """device_state() works (memory-efficient image mode rebuilds
+        next_obs at sample time, so it has none)."""
+        return not (self.image_buffer and self.memory_efficient)
 
     def __init__(self, max_replay_buffer_size: int, observation_dim, action_dim: int,
                  image_buffer: bool = False, memory_efficient_way: bool = False,

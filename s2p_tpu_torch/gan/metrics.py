@@ -1,10 +1,15 @@
-"""Image-fidelity metrics of the train CLI: PSNR, SSIM and FID over VGG
-features.
+"""Image-fidelity metrics: PSNR, SSIM, an LPIPS-style perceptual distance
+and FID.
 
-The port of the part of ``s2p_tpu/gan/metrics.py`` that ``train_gan``
-uses. PSNR and SSIM batch over leading dims of NHWC images in [-1, 1] and
-run on the images' device; the Fréchet distance is computed on the host
-with scipy's ``sqrtm``, as in the JAX package.
+The port of ``s2p_tpu/gan/metrics.py``. PSNR and SSIM batch over leading
+dims of NHWC images in [-1, 1] and run on the images' device;
+``PerceptualMetric`` is the LPIPS-style distance over VGG19 (features
+unit-normalised over channels, squared differences summed over channels,
+averaged over space, summed over layers; ``gan.perceptual.LPIPSMetric`` is
+LPIPS proper, over VGG16); the Fréchet distance is computed on the host
+with scipy's ``sqrtm``, as in the JAX package, over any extractor
+(``vgg_fid_extractor`` here, ``gan.inception.inception_fid_extractor`` for
+the InceptionV3 FID).
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from s2p_tpu_torch.gan.perceptual import VGG19Features
+from s2p_tpu_torch.gan.perceptual import VGG19Features, pair_distance
 
 
 def psnr(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -56,6 +61,20 @@ def ssim(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (num / den).mean(dim=(1, 2, 3)).reshape(lead)
 
 
+class PerceptualMetric:
+    """The LPIPS-style distance over ``VGG19Features`` (the given weights,
+    or the seeded random network) per image pair, in the network's dtype."""
+
+    def __init__(self, state_dict: Optional[Mapping[str, torch.Tensor]] = None, seed: int = 0,
+                 device: str | torch.device = "cuda"):
+        self.vgg = VGG19Features(seed=seed, device=device)
+        if state_dict is not None:
+            self.vgg.load_state_dict(state_dict, strict=True)
+
+    def __call__(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return pair_distance(self.vgg, a, b, lambda k, d2: d2.sum(-1))
+
+
 def feature_stats(feats: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     feats = np.asarray(feats, np.float64)
     return feats.mean(axis=0), np.cov(feats, rowvar=False)
@@ -67,11 +86,13 @@ def frechet_distance(mu1: np.ndarray, sigma1: np.ndarray, mu2: np.ndarray,
     from scipy import linalg
 
     diff = mu1 - mu2
-    covmean, _ = linalg.sqrtm(sigma1 @ sigma2, disp=False)
+    # sqrtm without ``disp``: newer scipy has dropped the argument, and the
+    # default returns the matrix alone in every version
+    covmean = linalg.sqrtm(sigma1 @ sigma2)
     if not np.isfinite(covmean).all():
         # the usual small-sample stabilisation: jitter the diagonals
         eps = 1e-6 * np.eye(sigma1.shape[0])
-        covmean, _ = linalg.sqrtm((sigma1 + eps) @ (sigma2 + eps), disp=False)
+        covmean = linalg.sqrtm((sigma1 + eps) @ (sigma2 + eps))
     if np.iscomplexobj(covmean):
         covmean = covmean.real
     return float(diff @ diff + np.trace(sigma1 + sigma2 - 2.0 * covmean))
@@ -88,7 +109,7 @@ def vgg_fid_extractor(state_dict: Optional[Mapping[str, torch.Tensor]] = None, s
 
     @torch.no_grad()
     def extract(images: torch.Tensor) -> torch.Tensor:
-        images = torch.as_tensor(images, device=vgg.mean.device).float()
+        images = torch.as_tensor(images, device=vgg.shift.device).float()
         return vgg(images)[3].mean(dim=(1, 2))
 
     return extract
@@ -108,9 +129,14 @@ def compute_fid(extractor: Callable[[torch.Tensor], torch.Tensor],
     return frechet_distance(mu_r, s_r, mu_f, s_f)
 
 
-def evaluate_pairs(fake, real) -> dict:
+def evaluate_pairs(fake, real, perceptual: Optional[Callable] = None) -> dict:
     """PSNR and SSIM over aligned generated and ground-truth frames (numpy
-    arrays or tensors, on their device)."""
+    arrays or tensors, on their device), and ``lpips_vgg``, the mean of
+    ``perceptual`` (a ``PerceptualMetric`` or ``LPIPSMetric``), when one is
+    given."""
     f = torch.as_tensor(fake).float()
     r = torch.as_tensor(real, device=f.device).float()
-    return {"psnr": psnr(f, r).mean().item(), "ssim": ssim(f, r).mean().item()}
+    out = {"psnr": psnr(f, r).mean().item(), "ssim": ssim(f, r).mean().item()}
+    if perceptual is not None:
+        out["lpips_vgg"] = perceptual(f, r).mean().item()
+    return out

@@ -1,5 +1,5 @@
-"""The offline-RL networks and the IQL trainer (the port of ``s2p_tpu/rl``'s
-policies, critics, samplers and IQL; CQL and SAC come later)."""
+"""The offline-RL networks and trainers (the port of ``s2p_tpu/rl``'s
+policies, critics, samplers, IQL, SAC and CQL)."""
 
 from s2p_tpu_torch.rl.policies import (
     GaussianPolicy,
@@ -18,6 +18,8 @@ from s2p_tpu_torch.rl.critics import (
     state_dict_from_jax_critic_params,
 )
 from s2p_tpu_torch.rl.iql import IQLTrainer, iql_full_state_from_jax, jax_iql_full_state
+from s2p_tpu_torch.rl.sac import SACTrainer
+from s2p_tpu_torch.rl.cql import CQLTrainer, cql_full_state_from_jax, jax_cql_full_state
 from s2p_tpu_torch.rl.scan_utils import make_flat_sampler, make_window_sampler
 
 __all__ = [
@@ -36,6 +38,10 @@ __all__ = [
     "IQLTrainer",
     "iql_full_state_from_jax",
     "jax_iql_full_state",
+    "SACTrainer",
+    "CQLTrainer",
+    "cql_full_state_from_jax",
+    "jax_cql_full_state",
     "make_flat_sampler",
     "make_window_sampler",
 ]

@@ -28,14 +28,16 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from s2p_tpu_torch.nn.convert import jax_dense_tree_from_state_dict, state_dict_from_jax_dense_tree
+from s2p_tpu_torch.nn.convert import jax_dense_tree_from_state_dict
 from s2p_tpu_torch.rl.critics import CriticSLAC, q_subtree, soft_update
-from s2p_tpu_torch.rl.scan_utils import make_flat_sampler, make_window_sampler
-
-
-def _adam(module: torch.nn.Module, lr: float) -> torch.optim.Adam:
-    """``optax.adam``: β 0.9/0.999, ε 1e-8 outside the square root."""
-    return torch.optim.Adam(module.parameters(), lr=lr, eps=1e-8)
+from s2p_tpu_torch.rl.state import (
+    adam,
+    jax_networks_state,
+    load_networks_full_state,
+    networks_full_state,
+    networks_state_from_jax,
+)
+from s2p_tpu_torch.rl.scan_utils import train_many
 
 
 class IQLTrainer:
@@ -54,8 +56,8 @@ class IQLTrainer:
         self.policy = policy.to(self.device)
         self.critic = critic.to(self.device)
         self.target_q = q_subtree(self.critic)
-        self.policy_opt = _adam(self.policy, policy_lr)
-        self.critic_opt = _adam(self.critic, qf_lr)
+        self.policy_opt = adam(self.policy.parameters(), policy_lr)
+        self.critic_opt = adam(self.critic.parameters(), qf_lr)
         self.discount, self.reward_scale = discount, reward_scale
         self.quantile, self.beta, self.clip_score = quantile, beta, clip_score
         self.soft_target_tau = soft_target_tau
@@ -156,31 +158,11 @@ class IQLTrainer:
 
     def train_many(self, num_steps: int, batch_size: int, buffer=None,
                    buffer_gen=None) -> Dict[str, torch.Tensor]:
-        """``num_steps`` steps with batches drawn on the device. SLAC path:
-        windows of ``buffer`` (the SLAC main buffer by default), half of
-        each batch from ``buffer_gen`` when given, and the joint latent step
-        on ``buffer`` after each RL step when the latent is unfrozen with
-        period 1. State path: flat batches of a ``SimpleReplayBuffer``.
-        Returns the last step's metrics; the host waits for none of them."""
-        if self.slac_algo is None:
-            if buffer is None or buffer_gen is not None:
-                raise ValueError("the state path takes one SimpleReplayBuffer")
-            sample = make_flat_sampler(buffer.device_state(), batch_size, self.generator)
-            joint = False
-        else:
-            buffer = self.slac_algo.buffer if buffer is None else buffer
-            sample = make_window_sampler(
-                buffer.device_state(), batch_size, self.generator,
-                buffer_gen.device_state() if buffer_gen is not None else None)
-            joint = not self.freeze_slac and self.slac_update_period == 1
-        metrics: Dict[str, torch.Tensor] = {}
-        for _ in range(num_steps):
-            metrics = self._step(sample())
-            if joint:
-                metrics.update(self.slac_algo.update_latent(buffer))
-            self._n_train_steps_total += 1
-        self._record(metrics)
-        return metrics
+        """``scan_utils.train_many``: ``num_steps`` steps with batches drawn
+        on the device (SLAC windows, half from ``buffer_gen`` when given,
+        and the joint latent step; or flat batches of a
+        ``SimpleReplayBuffer``)."""
+        return train_many(self, num_steps, batch_size, buffer, buffer_gen)
 
     def end_epoch(self, epoch: int) -> None:
         self._need_stats = True
@@ -200,96 +182,23 @@ class IQLTrainer:
 
     # -- crash-recovery state (optimizer state included) ----------------------
     def full_state(self) -> Dict[str, Any]:
-        s = dict(policy_params=self.policy.state_dict(), policy_opt=self.policy_opt.state_dict(),
-                 critic_params=self.critic.state_dict(), critic_opt=self.critic_opt.state_dict(),
-                 target_q=self.target_q.state_dict(), rng=self.generator.get_state(),
-                 n_train_steps=self._n_train_steps_total)
-        if self.slac_algo is not None:
-            s["slac_params"] = self.slac_algo.latent.state_dict()
-            s["slac_opt"] = self.slac_algo.opt.state_dict()
-        return s
+        return networks_full_state(self)
 
     def load_full_state(self, s: Mapping[str, Any]) -> None:
-        self.policy.load_state_dict(s["policy_params"])
-        self.policy_opt.load_state_dict(s["policy_opt"])
-        self.critic.load_state_dict(s["critic_params"])
-        self.critic_opt.load_state_dict(s["critic_opt"])
-        self.target_q.load_state_dict(s["target_q"])
-        self.generator.set_state(s["rng"])
-        self._n_train_steps_total = int(s["n_train_steps"])
-        if self.slac_algo is not None and "slac_params" in s:
-            self.slac_algo.latent.load_state_dict(s["slac_params"])
-            self.slac_algo.opt.load_state_dict(s["slac_opt"])
+        load_networks_full_state(self, s)
 
 
 # -- the JAX package's full_state ↔ the port's ---------------------------------
-
-def _adam_state_from_optax(opt: torch.optim.Adam, module: torch.nn.Module, optax_state,
-                           to_state_dict) -> Dict[str, Any]:
-    """An optax ``adam`` state (``(ScaleByAdamState(count, mu, nu), …)`` or
-    ``{"count", "mu", "nu"}``) as ``opt``'s state dict over ``module``."""
-    adam = optax_state[0] if isinstance(optax_state, (tuple, list)) else optax_state
-    get = (lambda k: adam[k]) if isinstance(adam, Mapping) else (lambda k: getattr(adam, k))  # noqa: E731
-    mu, nu = to_state_dict(get("mu")), to_state_dict(get("nu"))
-    count = float(np.asarray(get("count")))
-    sd = opt.state_dict()
-    sd["state"] = {i: dict(step=torch.tensor(count), exp_avg=mu[name], exp_avg_sq=nu[name])
-                   for i, (name, _) in enumerate(module.named_parameters())}
-    return sd
-
-
-def _adam_state_to_numpy(opt: torch.optim.Adam, module: torch.nn.Module,
-                         to_tree) -> Dict[str, Any]:
-    """``opt``'s moments over ``module`` as ``{"count", "mu", "nu"}`` with
-    numpy trees under flax names (``to_tree`` maps a state dict to one;
-    optax's ``ScaleByAdamState`` is built from them)."""
-    params = dict(module.named_parameters())
-    state = opt.state_dict()["state"]
-    moment = lambda k: to_tree({n: state[i][k] if state else torch.zeros_like(p)  # noqa: E731
-                                for i, (n, p) in enumerate(params.items())})
-    count = int(state[0]["step"]) if state else 0
-    return dict(count=count, mu=moment("exp_avg"), nu=moment("exp_avg_sq"))
-
 
 def iql_full_state_from_jax(trainer: IQLTrainer, s: Mapping[str, Any]) -> Dict[str, Any]:
     """The JAX ``IQLTrainer.full_state()`` (numpy leaves) as the port's
     ``full_state`` for ``trainer``; the generator state stays the
     trainer's (JAX keys do not map to it)."""
-    from s2p_tpu_torch.slac.convert import state_dict_from_jax_latent_params
-
-    out = dict(
-        policy_params=state_dict_from_jax_dense_tree(s["policy_params"]),
-        policy_opt=_adam_state_from_optax(trainer.policy_opt, trainer.policy, s["policy_opt"],
-                                          state_dict_from_jax_dense_tree),
-        critic_params=state_dict_from_jax_dense_tree(s["critic_params"]),
-        critic_opt=_adam_state_from_optax(trainer.critic_opt, trainer.critic, s["critic_opt"],
-                                          state_dict_from_jax_dense_tree),
-        target_q=state_dict_from_jax_dense_tree(s["target_q"]),
-        rng=trainer.generator.get_state(), n_train_steps=int(np.asarray(s["n_train_steps"])))
-    if trainer.slac_algo is not None and "slac_params" in s:
-        latent = trainer.slac_algo.latent
-        out["slac_params"] = state_dict_from_jax_latent_params(s["slac_params"])
-        out["slac_opt"] = _adam_state_from_optax(trainer.slac_algo.opt, latent, s["slac_opt"],
-                                                 state_dict_from_jax_latent_params)
-    return out
+    return dict(networks_state_from_jax(trainer, s), rng=trainer.generator.get_state(),
+                n_train_steps=int(np.asarray(s["n_train_steps"])))
 
 
 def jax_iql_full_state(trainer: IQLTrainer) -> Dict[str, Any]:
     """The port's trainer state as the JAX ``full_state`` layout with numpy
     leaves; each optimizer state is ``{"count", "mu", "nu"}``."""
-    from s2p_tpu_torch.slac.convert import jax_latent_params_from_state_dict
-
-    s = dict(policy_params=jax_dense_tree_from_state_dict(trainer.policy.state_dict()),
-             policy_opt=_adam_state_to_numpy(trainer.policy_opt, trainer.policy,
-                                             jax_dense_tree_from_state_dict),
-             critic_params=jax_dense_tree_from_state_dict(trainer.critic.state_dict()),
-             critic_opt=_adam_state_to_numpy(trainer.critic_opt, trainer.critic,
-                                             jax_dense_tree_from_state_dict),
-             target_q=jax_dense_tree_from_state_dict(trainer.target_q.state_dict())["params"],
-             n_train_steps=trainer._n_train_steps_total)
-    if trainer.slac_algo is not None:
-        latent = trainer.slac_algo.latent
-        s["slac_params"] = jax_latent_params_from_state_dict(latent.state_dict())
-        s["slac_opt"] = _adam_state_to_numpy(trainer.slac_algo.opt, latent,
-                                             jax_latent_params_from_state_dict)
-    return s
+    return dict(jax_networks_state(trainer), n_train_steps=trainer._n_train_steps_total)

@@ -3,7 +3,8 @@
 The port of ``s2p_tpu/rl/scan_utils.py``. The reference's dual-buffer
 configuration samples batch/2 real and batch/2 generated windows per
 gradient step; here the indices come from a ``torch.Generator`` on the
-buffers' device and the gather runs there.
+buffers' device and the gather runs there. ``train_many`` is the loop the
+IQL and CQL trainers share (the JAX package scans it).
 """
 
 from __future__ import annotations
@@ -48,3 +49,34 @@ def make_flat_sampler(buf_state: Dict, batch_size: int, generator: torch.Generat
         return {k: buf_state[k][idx] for k in keys}
 
     return sample
+
+
+def train_many(trainer, num_steps: int, batch_size: int, buffer=None,
+               buffer_gen=None) -> Dict[str, torch.Tensor]:
+    """``num_steps`` of ``trainer._step`` with batches drawn on the device
+    from ``trainer.generator``. SLAC path: windows of ``buffer`` (the SLAC
+    main buffer by default), half of each batch from ``buffer_gen`` when
+    given, and the joint latent step on ``buffer`` after each RL step when
+    the latent is unfrozen with period 1. State path: flat batches of a
+    ``SimpleReplayBuffer``. Returns the last step's metrics; the host
+    waits for none of them."""
+    slac = trainer.slac_algo
+    if slac is None:
+        if buffer is None or buffer_gen is not None:
+            raise ValueError("the state path takes one SimpleReplayBuffer")
+        sample = make_flat_sampler(buffer.device_state(), batch_size, trainer.generator)
+        joint = False
+    else:
+        buffer = slac.buffer if buffer is None else buffer
+        sample = make_window_sampler(
+            buffer.device_state(), batch_size, trainer.generator,
+            buffer_gen.device_state() if buffer_gen is not None else None)
+        joint = not trainer.freeze_slac and trainer.slac_update_period == 1
+    metrics: Dict[str, torch.Tensor] = {}
+    for _ in range(num_steps):
+        metrics = trainer._step(sample())
+        if joint:
+            metrics.update(slac.update_latent(buffer))
+        trainer._n_train_steps_total += 1
+    trainer._record(metrics)
+    return metrics

@@ -1,6 +1,6 @@
 """SLAC: the sequential latent model, its algorithm wrapper, weight
-converters and pretraining (the port of ``s2p_tpu/slac``; its online
-``networks.py`` moves with SAC)."""
+converters, pretraining and the online actor-critic networks (the port of
+``s2p_tpu/slac``)."""
 
 from s2p_tpu_torch.slac.latent import (
     FixedGaussianParams,
@@ -17,6 +17,12 @@ from s2p_tpu_torch.slac.convert import (
     jax_latent_params_from_state_dict,
     state_dict_from_jax_latent_params,
 )
+from s2p_tpu_torch.slac.networks import (
+    SlacGaussianPolicy,
+    TwinnedQNetwork,
+    jax_slac_network_params_from_state_dict,
+    state_dict_from_jax_slac_network_params,
+)
 from s2p_tpu_torch.slac.pretrain import pretrain_latent
 
 __all__ = [
@@ -31,5 +37,9 @@ __all__ = [
     "convert_latent_state_dict",
     "jax_latent_params_from_state_dict",
     "state_dict_from_jax_latent_params",
+    "SlacGaussianPolicy",
+    "TwinnedQNetwork",
+    "jax_slac_network_params_from_state_dict",
+    "state_dict_from_jax_slac_network_params",
     "pretrain_latent",
 ]

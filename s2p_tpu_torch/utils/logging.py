@@ -1,10 +1,13 @@
-"""Experiment logger: the part of ``s2p_tpu/utils/logging.py`` that the
-train CLI uses.
+"""Experiment logger: the port of ``s2p_tpu/utils/logging.py``.
 
 - tabular rows → ``progress.csv``, with the key set frozen at the first
   dump (later rows with other keys warn and are filled with blanks);
 - a human-readable table on stdout, and every message in ``debug.log``;
-- the experiment's config → ``variant.json``.
+- the experiment's config → ``variant.json``;
+- per-iteration snapshots (``save_itr_params``) in the modes ``all | last |
+  gap | gap_and_last | none``: pickles of trees whose tensors became numpy
+  arrays, so that the JAX package reads them too;
+- ``logger``, the module-level logger the RL loops default to.
 """
 
 from __future__ import annotations
@@ -14,9 +17,12 @@ import datetime
 import json
 import os
 import os.path as osp
+import pickle
 import sys
 from collections import OrderedDict
 from typing import Any, Iterable, Mapping, Optional
+
+SNAPSHOT_MODES = ("all", "last", "gap", "gap_and_last", "none")
 
 
 def _json_default(o: Any) -> Any:
@@ -33,6 +39,18 @@ def _json_default(o: Any) -> Any:
 
 def variant_json(variant: Mapping[str, Any]) -> str:
     return json.dumps(variant, indent=2, sort_keys=True, default=_json_default)
+
+
+def _to_host(tree: Any) -> Any:
+    """``tree`` with every tensor as a numpy array (dicts, lists, tuples
+    recursed)."""
+    if hasattr(tree, "detach"):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, Mapping):
+        return type(tree)((k, _to_host(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
 
 
 def format_table(rows: Iterable[tuple]) -> str:
@@ -53,6 +71,8 @@ class Logger:
         self._csv_file = None
         self._csv_writer = None
         self._text_file = None
+        self._snapshot_mode = "gap_and_last"
+        self._snapshot_gap = 10
 
     @property
     def log_dir(self) -> Optional[str]:
@@ -65,6 +85,16 @@ class Logger:
         self._tabular_keys = None
         self._csv_file = open(osp.join(log_dir, "progress.csv"), "a", newline="")
         self._text_file = open(osp.join(log_dir, "debug.log"), "a")
+
+    def set_snapshot_mode(self, mode: str) -> None:
+        if mode not in SNAPSHOT_MODES:
+            raise ValueError(f"unknown snapshot mode {mode!r}")
+        self._snapshot_mode = mode
+
+    def set_snapshot_gap(self, gap: int) -> None:
+        if gap < 1:
+            raise ValueError(f"snapshot gap {gap} < 1")
+        self._snapshot_gap = gap
 
     def log(self, msg: str, with_timestamp: bool = True) -> None:
         if with_timestamp:
@@ -111,6 +141,34 @@ class Logger:
             self._csv_file.flush()
         self._tabular.clear()
 
+    def save_itr_params(self, itr: int, params: Any) -> Optional[str]:
+        """Snapshot ``params`` as the mode says: ``itr_{itr}.pkl`` (all;
+        gap, every ``gap`` iterations), ``params.pkl`` (last), both
+        (gap_and_last) or nothing (none, or no log dir). Returns the path
+        written last, or None."""
+        if self._log_dir is None or self._snapshot_mode == "none":
+            return None
+        mode, gap = self._snapshot_mode, self._snapshot_gap
+        if mode == "all":
+            name = f"itr_{itr}.pkl"
+        elif mode == "last":
+            name = "params.pkl"
+        elif mode == "gap":
+            if itr % gap != 0:
+                return None
+            name = f"itr_{itr}.pkl"
+        else:  # gap_and_last
+            if itr % gap == 0:
+                self._write_snapshot(f"itr_{itr}.pkl", params)
+            name = "params.pkl"
+        return self._write_snapshot(name, params)
+
+    def _write_snapshot(self, name: str, params: Any) -> str:
+        path = osp.join(self._log_dir, name)
+        with open(path, "wb") as f:
+            pickle.dump(_to_host(params), f)
+        return path
+
     def close(self) -> None:
         for f in (self._csv_file, self._text_file):
             if f is not None:
@@ -134,3 +192,7 @@ def setup_logger(exp_name: str, variant: Optional[Mapping[str, Any]] = None,
         log.log(f"Variant:\n{variant_json(variant)}", with_timestamp=False)
     log.log(f"Logging to {log_dir}")
     return log, log_dir
+
+
+# the module-level logger the loops default to, as the JAX package's
+logger = Logger()

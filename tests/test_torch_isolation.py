@@ -50,7 +50,10 @@ def test_port_imports_nothing_of_jax():
             "s2p_tpu_torch.slac.algo", "s2p_tpu_torch.slac.pretrain",
             "s2p_tpu_torch.data.replay", "s2p_tpu_torch.rl", "s2p_tpu_torch.rl.critics",
             "s2p_tpu_torch.rl.policies", "s2p_tpu_torch.rl.scan_utils", "s2p_tpu_torch.rl.iql",
-            "s2p_tpu_torch.cli.slac_pretrain"} <= set(report["modules"])
+            "s2p_tpu_torch.cli.slac_pretrain", "s2p_tpu_torch.rl.state", "s2p_tpu_torch.rl.sac",
+            "s2p_tpu_torch.rl.cql", "s2p_tpu_torch.slac.networks", "s2p_tpu_torch.core",
+            "s2p_tpu_torch.core.trainer", "s2p_tpu_torch.core.simple_offline_rl_algorithm",
+            "s2p_tpu_torch.utils.timer", "s2p_tpu_torch.gan.inception"} <= set(report["modules"])
 
 
 def test_cli_without_cpu_flag_needs_cuda(monkeypatch, tmp_path):
@@ -103,3 +106,29 @@ def test_slac_and_iql_default_to_the_card():
             SlacAlgorithm(3, **kw)
         with pytest.raises((RuntimeError, AssertionError)):
             IQLTrainer(*nets())
+
+
+@pytest.mark.parametrize("trainer", ["CQLTrainer", "SACTrainer"])
+def test_cql_and_sac_default_to_the_card(trainer):
+    import s2p_tpu_torch.rl as rl
+
+    cls = getattr(rl, trainer)
+    nets = lambda: (rl.TanhGaussianPolicy(4, (8,), 3), rl.CriticSLAC(4, 3, (8,)))  # noqa: E731
+    if torch.cuda.is_available():
+        assert next(cls(*nets()).policy.parameters()).is_cuda
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            cls(*nets())
+
+
+def test_metrics_default_to_the_card():
+    from s2p_tpu_torch.gan.inception import inception_fid_extractor
+    from s2p_tpu_torch.gan.metrics import PerceptualMetric
+    from s2p_tpu_torch.gan.perceptual import LPIPSMetric
+
+    for make in (LPIPSMetric, PerceptualMetric, inception_fid_extractor):
+        if torch.cuda.is_available():
+            make()
+        else:
+            with pytest.raises((RuntimeError, AssertionError)):
+                make()
