@@ -142,6 +142,28 @@ contiguous as the module path passes them) and times it there.
     frames at batch 256 (LPIPS pairs/sec), the extractor over both sets
     (FID images/sec), ``compute_fid`` of the two, and a profile of one
     extraction batch.
+19. the S2P-augmented RL experiment (a main path, ``run_iql_image.sh``):
+    first one full-width acting step (a window of 8 100px frames,
+    ``SlacAlgorithm.preprocess``, the deterministic ``PolicyAgent`` over
+    ``TanhGaussianPolicy(1024, 1024)`` on the 2,090-wide feature_action),
+    card f32 vs CPU f32 and f64, feature and action held as phase 13 holds
+    its steps. Then the ``mujoco_finetune`` CLI's own pieces, on stub envs
+    and in-memory data (the card machine has neither dm_control nor h5py):
+    ``make_slac`` with phase 14's latent and real rows, then
+    ``ingest_generated_on_device`` renders phase 11's 1,000 augmented rows
+    with a seeded 100px ngf-64 generator in bf16 and ingests them (aleatoric
+    λ 2; counts reset just before and read just after: 13 forward launches
+    per batch of 256); then ``build_image_rl`` of the IQL configuration
+    (batch 128, epochs −2, −1 and 0 of 100 steps, eval and exploration on
+    ``StubEnv`` 100px with cheetah's 250-step horizon, no video) and its
+    ``train()`` (no MAT-norm launch), then the CQL configuration for one
+    offline epoch of 20 steps. Checks: progress.csv has the frozen columns
+    of ``tests/fixtures/walker_image_iql_progress.csv``, finite trainer
+    values, moved policy, critic and latent weights, 250-step eval paths,
+    ``params.pkl`` and ``rewards_list.pkl``. Prints eval env-steps/sec,
+    train steps/sec inside the loop, each epoch's ``time/`` columns,
+    generated frames/sec and a profile of one acting step (launches, idle
+    share).
 
 ``--ab DIR`` runs phases 1 and 2, then times the MAT-norm kernels against
 those of the checkout in DIR in turns, then the two main paths end to end
@@ -155,7 +177,7 @@ The last two lines are the per-kernel JSON record and
 torch.profiler summary of one throughput rollout, of one bf16 train step,
 of four bridge batches, of 20 ensemble steps, of one ``gb_int8`` rollout,
 of one ELBO step, of one IQL + SLAC step, of one CQL + SLAC step, of one
-LPIPS batch and of one FID extraction batch to DIR.
+LPIPS batch, of one FID extraction batch and of one acting step to DIR.
 """
 
 from __future__ import annotations
@@ -250,6 +272,11 @@ EVAL_BATCH, EVAL_PARITY_SIZE = 256, 320
 LPIPS_CHANNELS = (64, 128, 256, 512, 512)
 PARITY_RUNS = (("cpu f64", "cpu", "float64"), ("cpu f32", "cpu", "float32"),
                ("cuda f32", "cuda", "float32"))
+# the RL experiment (phase 19): run_iql_image.sh through the CLI's assembly,
+# cut to epochs -2..0 of 100 steps (the reference: -150..0 of 2,000); CQL one
+# offline epoch of 20; cheetah's horizon, 1,000 steps / frame skip 4
+RL_LOOP_STEPS, RL_CQL_STEPS, CHEETAH_HORIZON = 100, 20, 250
+FROZEN_CSV = os.path.join("tests", "fixtures", "walker_image_iql_progress.csv")
 
 
 def fail(msg: str) -> None:
@@ -1775,6 +1802,198 @@ def phase_eval_metrics(ck, card: str, fake_frames, profile_dir: str | None) -> d
                 extract_idle=ex["device_idle_share"])
 
 
+def phase_acting_parity() -> None:
+    """One full-width acting step (``SlacAlgorithm.preprocess`` of an 8-frame
+    100px window, then the deterministic ``PolicyAgent`` over the shipped
+    policy) on the card in f32 and on the CPU in f32 and f64, from the same
+    seeded weights and window."""
+    import numpy as np
+    import torch
+
+    from s2p_tpu_torch.samplers import PolicyAgent
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S = SLAC_KW["num_sequences"]
+    rs = np.random.RandomState(81)
+    frames = rs.randint(0, 256, (S, BRIDGE_SIZE, BRIDGE_SIZE, 3), dtype=np.uint8)
+    actions = rs.uniform(-1, 1, (S - 1) * ACT_DIM).astype(np.float32)
+    out = {}
+    for name, device, dtype in PARITY_RUNS:
+        dtype = getattr(torch, dtype)
+        slac = make_slac(device, SLAC_BATCH, 16)
+        slac.latent.to(dtype)
+        policy, _ = slac_rl_nets(slac, dtype)
+        agent = PolicyAgent(policy.to(device), deterministic=True)
+        fa = slac.preprocess(frames, actions)
+        action, _ = agent.get_action(fa.squeeze(0))
+        out[name] = dict(feature={"feature_action": fa.detach().double().cpu()},
+                         action={"action": torch.from_numpy(action).double()})
+        print(f"acting parity {name}: feature_action {tuple(fa.shape)}, action "
+              + " ".join(f"{v:.8f}" for v in action))
+    for key in ("feature", "action"):
+        hold_to_f64(f"acting step {key} (of the largest |value|)",
+                    {n: r[key] for n, r in out.items()}, "grad")
+
+
+def phase_rl_experiment(ck, card: str, pretrain: dict, generated: dict,
+                        profile_dir: str | None) -> dict:
+    """``run_iql_image.sh`` through the ``mujoco_finetune`` CLI's assembly on
+    stub envs: on-device generation and ingestion of phase 11's rows, the IQL
+    loop over epochs -2..0, then the CQL loop for one offline epoch."""
+    import csv
+    import pickle
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from s2p_tpu_torch.cli.mujoco_finetune import (
+        build_image_rl,
+        build_parser,
+        experiment_logger,
+        ingest_generated_on_device,
+        make_variant,
+    )
+    from s2p_tpu_torch.cli.mujoco_finetune import make_slac as cli_make_slac
+    from s2p_tpu_torch.envs import StubEnv
+    from s2p_tpu_torch.gan import S2PGenerator
+
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults, as phase 15
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = os.path.dirname(os.path.abspath(__file__))
+    log_root = os.path.join(root, "build", "chip_smoke_rl")
+    shutil.rmtree(log_root, ignore_errors=True)
+    with open(os.path.join(root, FROZEN_CSV), newline="") as f:
+        frozen = set(next(csv.reader(f)))
+
+    def variant(algo: str, start_epoch: int, num_epochs: int, steps: int):
+        return make_variant(build_parser().parse_args([
+            "--env_name", "cheetah-run", "--exp_name", f"{algo}_image", "--algo_type", algo,
+            "--image_rl", "--slac_representation", "--slac_policy_input_type", "feature_action",
+            "--data_mix_num_real", str(SLAC_REAL_ROWS), "--data_mix_num_gen", str(SLAC_GEN_ROWS),
+            "--uncertainty_type", UNCERTAINTY_TYPE,
+            "--uncertainty_penalty_lambda", str(UNCERTAINTY_LAMBDA), "--no_video",
+            "--image_size", str(BRIDGE_SIZE), "--batch_size", str(IQL_BATCH),
+            "--start_epoch", str(start_epoch), "--num_epochs", str(num_epochs),
+            "--num_trains_per_train_loop", str(steps), "--log_dir", log_root, "--gpu_id", "0"]))
+
+    def stub_env():
+        return StubEnv(image_shape=(BRIDGE_SIZE, BRIDGE_SIZE, 3), action_dim=ACT_DIM,
+                       max_episode_steps=CHEETAH_HORIZON)
+
+    def run(v, slac, name):
+        """Build and train one loop; (progress rows, the loop, seconds,
+        MAT-norm launches), after the checks every run must pass."""
+        log, log_dir = experiment_logger(v)
+        algo = build_image_rl(v, slac, stub_env(), stub_env(), log, log_dir)
+        nets = dict(policy=algo.trainer.policy.fc0.weight,
+                    critic=algo.trainer.critic.qf1.fc0.weight,
+                    latent=slac.latent.encoder.net[0].weight)
+        before = {k: t.detach().clone() for k, t in nets.items()}
+        ck.fused_mat_norm.launches = ck.fused_mat_norm_bwd.launches = 0
+        t0 = time.perf_counter()
+        algo.train()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = (ck.fused_mat_norm.launches, ck.fused_mat_norm_bwd.launches)
+        log.close()
+        with open(os.path.join(log_dir, "progress.csv"), newline="") as f:
+            rows = list(csv.DictReader(f))
+        epochs = list(range(v["start_epoch"], v["num_epochs"]))
+        if [int(r["epoch"]) for r in rows] != epochs:
+            fail(f"{name} loop: epochs {[r['epoch'] for r in rows]}, expected {epochs}")
+        if set(rows[0]) != frozen and name == "iql":
+            fail(f"{name} loop: progress.csv columns differ from {FROZEN_CSV}: "
+                 f"{sorted(set(rows[0]) ^ frozen)}")
+        bad = [k for r in rows for k, x in r.items()
+               if k.startswith("trainer/") and not np.isfinite(float(x))]
+        if bad:
+            fail(f"{name} loop: non-finite trainer values {sorted(set(bad))}")
+        still = [k for k, t in nets.items() if torch.equal(t, before[k])]
+        if still:
+            fail(f"{name} loop: {still} did not move")
+        lengths = {(r["eval/path length Min"], r["eval/path length Max"], r["eval/is_fresh"])
+                   for r in rows}
+        if lengths != {(f"{CHEETAH_HORIZON}.0", f"{CHEETAH_HORIZON}.0", "1")}:
+            fail(f"{name} loop: eval paths (min, max, fresh) {lengths}")
+        snapshots = any(e % algo.snapshot_gap == 0 for e in epochs)  # epoch 0 saves
+        for snap in ("rewards_list.pkl",) + (("params.pkl", "itr_0.pkl") if snapshots else ()):
+            if not os.path.exists(os.path.join(log_dir, snap)):
+                fail(f"{name} loop: no {snap}")
+        with open(os.path.join(log_dir, "rewards_list.pkl"), "rb") as f:
+            rewards = pickle.load(f)
+        if [r.shape for r in rewards] != [(1, CHEETAH_HORIZON)] * len(rows):
+            fail(f"{name} loop: rewards_list.pkl holds {[r.shape for r in rewards]}")
+        if launches != (0, 0):
+            fail(f"{name} loop launched the MAT-norm kernels {launches} times")
+        return rows, algo, elapsed
+
+    v = variant("iql", -2, 1, RL_LOOP_STEPS)
+    slac = cli_make_slac(v, ACT_DIM, "cuda")
+    slac.latent.load_state_dict(pretrain["latent"])
+    n_real = slac.buffer.ingest_real(pretrain["real"])
+    slac.buffer.mark_real()
+    gen = S2PGenerator(STATE_DIM, image_size=BRIDGE_SIZE, ngf=64, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    ck.fused_mat_norm.launches = ck.fused_mat_norm_bwd.launches = 0
+    t0 = time.perf_counter()
+    n_gen, n_frames = ingest_generated_on_device(slac, generated, gen, UNCERTAINTY_TYPE,
+                                                 UNCERTAINTY_LAMBDA)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_launches = dict(launches=ck.fused_mat_norm.launches,
+                        bwd_launches=ck.fused_mat_norm_bwd.launches)
+    expected = sum(norm_shapes(gen).values()) * math.ceil(n_frames / BATCH)
+    print(f"rl experiment: ingest_generated_on_device (100px ngf=64 bf16 batch {BATCH}): "
+          f"{n_frames} frames rendered and {n_gen} generated windows ingested beside {n_real} "
+          f"real in {gen_s:.3f} s, {n_frames / gen_s:.1f} generated frames/sec (bf16 copy of "
+          f"the generator, rendering and ingestion); fused_mat_norm launches "
+          f"{gen_launches['launches']} (expected {expected}), backward "
+          f"{gen_launches['bwd_launches']} on {card}")
+    if gen_launches != dict(launches=expected, bwd_launches=0):
+        fail(f"rl experiment: generation launched {gen_launches}, expected {expected} forward")
+    del gen
+
+    rows, algo, elapsed = run(v, slac, "iql")
+    horizon, steps = CHEETAH_HORIZON, RL_LOOP_STEPS
+    eval_sps = [horizon / float(r["time/evaluation sampling (s)"]) for r in rows]
+    train_sps = [steps / float(r["time/training (s)"]) for r in rows]
+    print(f"rl experiment iql (batch {IQL_BATCH}, epochs -2..0 of {steps} steps, eval 1 path of "
+          f"{horizon} steps per epoch on StubEnv 100px): loop {elapsed:.2f} s on {card}; eval "
+          "env-steps/sec per epoch " + ", ".join(f"{x:.1f}" for x in eval_sps)
+          + "; train steps/sec per epoch " + ", ".join(f"{x:.2f}" for x in train_sps))
+    for r in rows:
+        print(f"rl experiment iql epoch {r['epoch']}: "
+              + ", ".join(f"{k[5:]} {float(x):.4f}" for k, x in r.items() if k.startswith("time/"))
+              + f"; eval return {float(r['eval/Returns Mean']):.3f}, trainer/critic_loss "
+              f"{float(r['trainer/critic_loss']):.4g}, loss_image {float(r['trainer/loss_image']):.1f}")
+    col = algo.eval_data_collector
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    col.collect_new_paths(horizon, horizon, discard_incomplete_paths=True)
+    steady_sps = horizon / (time.perf_counter() - t0)
+    print(f"rl experiment: one more eval path after training, {steady_sps:.1f} env-steps/sec "
+          f"(MdpPathCollector on StubEnv 100px: window encode, policy, action to the host) "
+          f"on {card}")
+    window = np.random.RandomState(82).randint(
+        0, 256, (SLAC_KW["num_sequences"], BRIDGE_SIZE, BRIDGE_SIZE, 3), dtype=np.uint8)
+    acts = np.zeros((SLAC_KW["num_sequences"] - 1) * ACT_DIM, np.float32)
+    agent = col.policy
+    act_step = profile_device(lambda: agent.get_action(slac.preprocess(window, acts).squeeze(0)),
+                              profile_dir, "acting_step")
+
+    rows_cql, _, elapsed_cql = run(variant("cql", -1, 0, RL_CQL_STEPS), slac, "cql")
+    r = rows_cql[0]
+    print(f"rl experiment cql (batch {IQL_BATCH}, epoch -1 of {RL_CQL_STEPS} steps): loop "
+          f"{elapsed_cql:.2f} s, {RL_CQL_STEPS / float(r['time/training (s)']):.2f} train "
+          f"steps/sec, eval {horizon / float(r['time/evaluation sampling (s)']):.1f} "
+          f"env-steps/sec; trainer/min_qf1_loss {float(r['trainer/min_qf1_loss']):.4g} on {card}")
+    return dict(gen_launches, fps=n_frames / gen_s, eval_sps=eval_sps, train_sps=train_sps,
+                steady_sps=steady_sps, act_launches=act_step["launches"],
+                act_idle=act_step["device_idle_share"])
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1883,9 +2102,15 @@ def main() -> None:
     # phase 18: the evaluation metrics, card vs CPU, then LPIPS and FID rates (a main path)
     evals = phase_eval_metrics(ck, card, serving["frames"], args.profile)
 
+    # phase 19: the S2P-augmented RL experiment: one acting step card vs CPU, then
+    # IQL and CQL through the mujoco_finetune CLI's assembly (a main path)
+    phase_acting_parity()
+    rl = phase_rl_experiment(ck, card, pretrain, generated, args.profile)
+
     by_path = dict(serving=serving["launches"], training=training["fwd"], bridge=bridge,
                    gb_int8=gb_int8, slac_pretrain=pretrain["launches"], slac_iql=iql["launches"],
-                   cql_slac=cql["launches"], eval_metrics=evals["launches"])
+                   cql_slac=cql["launches"], eval_metrics=evals["launches"],
+                   rl_loop=rl["launches"])
     fwd_record = dict(
         name="fused_mat_norm", route="cuda", source="s2p_tpu_torch/csrc/fused_mat_norm.cu",
         replaces="s2p_tpu/gan/pallas_kernels.py:49", launches=sum(by_path.values()),
@@ -1913,7 +2138,7 @@ def main() -> None:
         launches_by_path=dict(serving=0, training=training["bwd"], bridge=0, gb_int8=0,
                               slac_pretrain=pretrain["bwd_launches"],
                               slac_iql=iql["bwd_launches"], cql_slac=cql["bwd_launches"],
-                              eval_metrics=evals["bwd_launches"]),
+                              eval_metrics=evals["bwd_launches"], rl_loop=rl["bwd_launches"]),
         max_abs_err=bwd["max_abs_err"], max_abs_err_bf16=bwd["max_abs_err_bf16"],
         ms=bwd["ms"], plain_ms=bwd["plain_ms"], bound_ms=bwd["bound_ms"], bound_by="bytes",
         library_ms=None, wall_ms=bwd["wall_ms"],

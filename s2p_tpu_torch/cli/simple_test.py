@@ -77,16 +77,17 @@ def resolve_dataroot(dataroot: str, env_type: str) -> str:
     return dataroot
 
 
-def resolve_device(gpu_ids: str) -> torch.device:
-    """``-1`` → CPU; otherwise the first listed CUDA index, which must exist."""
+def resolve_device(gpu_ids: str, flag: str = "--gpu_ids") -> torch.device:
+    """``-1`` → CPU; otherwise the first listed CUDA index, which must exist
+    (``flag`` names the option in the errors)."""
     first = int(gpu_ids.split(",")[0])
     if first < 0:
         return torch.device("cpu")
     if not torch.cuda.is_available():
-        raise RuntimeError(f"--gpu_ids={gpu_ids} asks for CUDA, which is not available; "
-                           "pass --gpu_ids=-1 to run on the CPU")
+        raise RuntimeError(f"{flag}={gpu_ids} asks for CUDA, which is not available; "
+                           f"pass {flag}=-1 to run on the CPU")
     if first >= torch.cuda.device_count():
-        raise RuntimeError(f"--gpu_ids={gpu_ids}: only {torch.cuda.device_count()} "
+        raise RuntimeError(f"{flag}={gpu_ids}: only {torch.cuda.device_count()} "
                            "CUDA device(s)")
     return torch.device("cuda", first)
 

@@ -4,10 +4,10 @@ The port of ``s2p_tpu/core/simple_offline_rl_algorithm.py``: no environment,
 ``num_epochs`` × ``num_batches_per_epoch`` trainer steps, the trainer's
 diagnostics and the epoch's times logged once per epoch.
 
-Batches come from ``replay_buffer.random_batch``, called as its
-``sampling_style`` says: ``"generator"`` (the SLAC sequence buffer) draws
-on the device from a ``torch.Generator`` passed by keyword, ``"rng"`` (the
-flat buffer) on the host from a numpy ``RandomState``. Both are seeded from
+Batches come from ``data.replay.random_batch``, which calls the buffer as
+its ``sampling_style`` says: ``"generator"`` (the SLAC sequence buffer)
+draws on the device from a ``torch.Generator``, ``"rng"`` (the flat
+buffer) on the host from a numpy ``RandomState``. Both are seeded from
 ``seed``; the generator lives on the trainer's device.
 """
 
@@ -18,6 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from s2p_tpu_torch.data.replay import random_batch
 from s2p_tpu_torch.utils.logging import Logger
 from s2p_tpu_torch.utils.logging import logger as global_logger
 from s2p_tpu_torch.utils.timer import Timer, block_until_ready
@@ -38,9 +39,7 @@ class SimpleOfflineRlAlgorithm:
         self._generator = torch.Generator(device=trainer.device).manual_seed(seed)
 
     def _random_batch(self):
-        if getattr(self.replay_buffer, "sampling_style", "rng") == "generator":
-            return self.replay_buffer.random_batch(self.batch_size, generator=self._generator)
-        return self.replay_buffer.random_batch(self.batch_size, rng=self._rng)
+        return random_batch(self.replay_buffer, self.batch_size, self._generator, self._rng)
 
     def train(self) -> None:
         for epoch in range(self.num_epochs):

@@ -61,6 +61,16 @@ def draw_indices(low: int, high: int, batch_size: int, generator: torch.Generato
     return torch.randint(low, high, (batch_size,), generator=generator, device=device)
 
 
+def random_batch(buffer, batch_size: int, generator: torch.Generator,
+                 rng: np.random.RandomState) -> Batch:
+    """``buffer.random_batch`` called as its ``sampling_style`` says:
+    ``"generator"`` (the SLAC sequence buffer) with the ``torch.Generator``,
+    ``"rng"`` (flat buffers) with the numpy ``RandomState``, by keyword."""
+    if getattr(buffer, "sampling_style", "rng") == "generator":
+        return buffer.random_batch(batch_size, generator=generator)
+    return buffer.random_batch(batch_size, rng=rng)
+
+
 class SlacReplayBuffer:
     """Episode-aware sequence replay over an indexed frame pool."""
 

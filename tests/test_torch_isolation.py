@@ -53,7 +53,17 @@ def test_port_imports_nothing_of_jax():
             "s2p_tpu_torch.cli.slac_pretrain", "s2p_tpu_torch.rl.state", "s2p_tpu_torch.rl.sac",
             "s2p_tpu_torch.rl.cql", "s2p_tpu_torch.slac.networks", "s2p_tpu_torch.core",
             "s2p_tpu_torch.core.trainer", "s2p_tpu_torch.core.simple_offline_rl_algorithm",
-            "s2p_tpu_torch.utils.timer", "s2p_tpu_torch.gan.inception"} <= set(report["modules"])
+            "s2p_tpu_torch.utils.timer", "s2p_tpu_torch.gan.inception",
+            "s2p_tpu_torch.utils.stats", "s2p_tpu_torch.utils.config", "s2p_tpu_torch.testing",
+            "s2p_tpu_torch.testing.csv_util", "s2p_tpu_torch.testing.stubs",
+            "s2p_tpu_torch.envs", "s2p_tpu_torch.envs.wrappers", "s2p_tpu_torch.envs.dmc",
+            "s2p_tpu_torch.samplers", "s2p_tpu_torch.samplers.agents",
+            "s2p_tpu_torch.samplers.rollout", "s2p_tpu_torch.samplers.path_collector",
+            "s2p_tpu_torch.samplers.step_collector", "s2p_tpu_torch.core.batch_rl_algorithm",
+            "s2p_tpu_torch.core.online_rl_algorithm", "s2p_tpu_torch.core.video",
+            "s2p_tpu_torch.data.env_replay_buffer", "s2p_tpu_torch.data.path_loaders",
+            "s2p_tpu_torch.cli.mujoco_finetune", "s2p_tpu_torch.cli.final_eval"
+            } <= set(report["modules"])
 
 
 def test_cli_without_cpu_flag_needs_cuda(monkeypatch, tmp_path):
@@ -65,6 +75,18 @@ def test_cli_without_cpu_flag_needs_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="not available"):
         resolve_device("0,1")
     assert resolve_device("-1") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("cli", ["mujoco_finetune", "final_eval"])
+def test_rl_clis_without_cpu_flag_need_cuda(monkeypatch, tmp_path, cli):
+    import importlib
+
+    main = importlib.import_module(f"s2p_tpu_torch.cli.{cli}").main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="gpu_id=-1"):
+        main(["--log_dir", str(tmp_path)] if cli == "mujoco_finetune"
+             else ["--run_dir", str(tmp_path)])
+    assert not list(tmp_path.iterdir())  # refused before any file was touched
 
 
 def test_generator_defaults_to_the_card():
