@@ -58,7 +58,11 @@ Phases, each of which must pass (the script stops at the first failure):
 
 Phase 3 also holds the forward kernel against its plain version at the
 image bridge's shapes (the 100px chain at batch 256, bf16 and f32, γ and β
-contiguous as the module path passes them) and times it there.
+contiguous as the module path passes them) and times it there. Phases 3
+and 6 also hold both kernels at the batches of phase 20's paths, whose
+launch plans differ from phase 8's: the 100px chain at 8 a rank (bf16 and
+f32) and at 2 a rank (f32, 20b's f32 step), and the forward at the serving
+shapes at batch 4 (20c, f32).
 
 9. world model, card vs CPU: the full-width cheetah ensemble (obs 17, act
    6, E 7, hidden 256 × 3, the rollout CLI's defaults; seeded weights) in
@@ -164,6 +168,43 @@ contiguous as the module path passes them) and times it there.
     train steps/sec inside the loop, each epoch's ``time/`` columns,
     generated frames/sec and a profile of one acting step (launches, idle
     share).
+20. data-parallel GAN training and the tensor-parallel generator, on
+    BASELINE's multi-env configuration: cheetah (state 17) + walker (state
+    24) pair datasets of 256 seeded uint8 100px rows each, concatenated
+    (``S2PPairDataset.concat``, states zero-padded to 24), at the training
+    protocol (global batch 16, bf16 on f32 parameters, ngf/ndf 64, 2 D
+    scales x 4 layers, VGG19 loss, R1 every 16).
+    20a (a main path): world 1 over NCCL (a TCP store on 127.0.0.1, this
+    card); the per-step DP path (each step from the single-process
+    trainer's state) and ``train_many_dp`` (2 steps at learning rate 0)
+    held in f32 (TF32 off, cuDNN's deterministic algorithms) to the
+    single-process ``train_step``/``train_many`` with the same draws
+    (phase 7's floors; the largest differences printed); 30 timed
+    bf16 per-step DP steps, in turns with 30 of a single-process copy of the
+    trainer (and beside phase 8's rate), counts reset just before each DP
+    window and read just after it (26 forward and 13 backward launches per
+    step); the gradient sync alone (the flatten, the two all-reduces, the
+    copies back) in device ms from the profiler, beside the stream's time
+    between CUDA events.
+    20b (a main path): 2 ranks over gloo, both on this card, spawned; one
+    f32 step (global batch 4, D's learning rate 0 as in phase 7) held to
+    the card's single-process f32 step on the global batch (phase 7's
+    floors) and to that step in f64 on the CPU (phase 7's rule), the CPU's
+    f64 and f32 steps replaying every ReLU's slope from the card's step (a
+    pre-activation within f32 noise of zero flips its slope, and one flip
+    moves a weight gradient by up to ~1e-2 of the largest; the flips are
+    counted, and both steps' distances from f64 with their own slopes
+    printed), then 2 bf16 per-step DP steps and 2 bf16
+    ``train_many_dp`` steps; after every step the ranks' state checksums
+    (all-gathered) must agree, and each rank must count 26 forward and 13
+    backward MAT-norm launches in it (its counts start at 0 in its own
+    process). The rate is gloo through the host on one card: a correctness
+    check, not a multi-card number.
+    20c (a main path): the serving generator (64px, ngf 64) sharded over a
+    data=1 x model=2 mesh of gloo ranks on this card (``min_features``
+    256): each rank's forward within 2e-5 of the replicated forward on the
+    card in f32 (TF32 off), at least one layer sharded, 13 MAT-norm
+    launches per rank. A rank that fails or times out fails the run.
 
 ``--ab DIR`` runs phases 1 and 2, then times the MAT-norm kernels against
 those of the checkout in DIR in turns, then the two main paths end to end
@@ -183,6 +224,7 @@ LPIPS batch, of one FID extraction batch and of one acting step to DIR.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import math
@@ -190,6 +232,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 STATE_DIM = 17  # cheetah
@@ -200,7 +243,7 @@ ROLLOUT_TOL = 5e-3  # tests/test_fast_inference.py:137
 BATCH, SEQ_LEN, TIMED_ROLLOUTS = 256, 8, 10
 # the training protocol: docs/E2E_RESULTS.md, s2p_tpu/cli/train_gan.py defaults
 TRAIN_SIZE, TRAIN_BATCH, TIMED_STEPS, MANY_STEPS = 100, 16, 32, 16
-TRAIN_D = dict(ndf=64, num_scales=2, n_layers=4)
+TRAIN_D, D_LR = dict(ndf=64, num_scales=2, n_layers=4), 4e-4
 # backward kernel vs plain, relative to max|plain|: f32 sums over up to
 # 10,000 pixels in another order (~1e-6 seen); bf16 outputs may differ by
 # one bf16 rounding step (2^-8) of the largest element
@@ -277,6 +320,17 @@ PARITY_RUNS = (("cpu f64", "cpu", "float64"), ("cpu f32", "cpu", "float32"),
 # offline epoch of 20; cheetah's horizon, 1,000 steps / frame skip 4
 RL_LOOP_STEPS, RL_CQL_STEPS, CHEETAH_HORIZON = 100, 20, 250
 FROZEN_CSV = os.path.join("tests", "fixtures", "walker_image_iql_progress.csv")
+# data-parallel GAN training (phase 20): BASELINE's multi-env configuration,
+# cheetah + walker (state 24, cheetah's 17 zero-padded), DP_ROWS seeded rows
+# each, at the training protocol (global batch TRAIN_BATCH); DP_STEPS timed
+# per-step DP steps at world 1 over NCCL; the tensor-parallel generator at
+# the serving width (FULL) on a data=1 x model=2 mesh
+WALKER_STATE_DIM, DP_ROWS, DP_STEPS, DP_WORLD = 24, 256, 30, 2
+# 20b's f32 step against f64 on the CPU: a global batch of 4 (2 a rank), since
+# a full-width f64 step costs ~4 s per image on the card machine's CPU
+DP_PARITY_BATCH = 4
+TP_MIN_FEATURES, TP_BATCH = 256, 4
+TP_TOL = 2e-5  # tests/test_parallel.py::test_model_shard_params_tensor_parallel_generator
 
 
 def fail(msg: str) -> None:
@@ -321,6 +375,65 @@ def device_ms(fn, iters: int = 20) -> float:
     return ms
 
 
+class HostWindow:
+    """A timed window of host-bound steps (``with HostWindow() as w``), and
+    what it spent besides its own work: the CPU seconds of this thread and
+    of the whole process against the wall (``wall``, synchronized at both
+    ends), the cores' mean clock at the end, the cyclic garbage collector's
+    pauses, the caching allocator's device mallocs, frees and retries (each
+    cudaMalloc or cudaFree synchronizes) and the objects the collector
+    tracks."""
+
+    def __enter__(self):
+        import gc
+
+        import torch
+
+        self.gc_s, self.gc_n, self._t = 0.0, 0, 0.0
+        gc.callbacks.append(self._gc)
+        self._mem = torch.cuda.memory_stats()
+        torch.cuda.synchronize()
+        self._wall, self._cpu = time.perf_counter(), time.process_time()
+        self._thread = time.thread_time()
+        return self
+
+    def _gc(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t = time.perf_counter()
+        else:
+            self.gc_s += time.perf_counter() - self._t
+            self.gc_n += 1
+
+    def __exit__(self, *exc) -> None:
+        import gc
+
+        import torch
+
+        torch.cuda.synchronize()
+        self.wall = time.perf_counter() - self._wall
+        self.cpu = time.process_time() - self._cpu
+        self.thread = time.thread_time() - self._thread
+        gc.callbacks.remove(self._gc)
+        mem = torch.cuda.memory_stats()
+        self.device_mallocs = {k: mem.get(k, 0) - self._mem.get(k, 0) for k in (
+            "num_device_alloc", "num_device_free", "num_alloc_retries")}
+        self.reserved_gb = torch.cuda.memory_reserved() / 1e9
+        self.objects = len(gc.get_objects())
+        try:
+            with open("/proc/cpuinfo") as f:
+                mhz = [float(line.split(":")[1]) for line in f if line.startswith("cpu MHz")]
+            self.mhz = sum(mhz) / len(mhz)
+        except (OSError, ValueError, ZeroDivisionError):
+            self.mhz = float("nan")
+
+    def __str__(self) -> str:
+        return (f"wall {self.wall:.3f} s, CPU {self.thread:.3f} s this thread, {self.cpu:.3f} s "
+                f"the process, cores at {self.mhz:.0f} MHz, gc {self.gc_s:.3f} s in {self.gc_n} "
+                f"collections ({self.objects} objects tracked), allocator "
+                + ", ".join(f"{k.removeprefix('num_')} {v}" for k, v in self.device_mallocs.items())
+                + f" (reserved {self.reserved_gb:.1f} GB)")
+
+
 def plan_label(plan) -> str:
     return (f"{plan.path} k={plan.cluster} tile={plan.tile_c} "
             f"{'vec16' if plan.vec else 'scalar'} grid={plan.grid}")
@@ -350,6 +463,17 @@ def norm_shapes(gen) -> dict:
         for c in [c_in, min(c_in, c_out)] + ([c_in] if c_in != c_out else []):
             shapes[(size, c)] = shapes.get((size, c), 0) + 1
     return shapes
+
+
+def parallel_norm_cases() -> tuple:
+    """(path, batch, generator, dtype names, backward too) of the MAT norms
+    that phase 20's data- and tensor-parallel paths launch, whose launch
+    plans depend on the batch: each 20b rank's bf16 protocol steps and its
+    f32 step on the 100px ("train") chain, and each 20c rank's TP forward
+    (f32) on the serving shapes. 20a, at world 1, runs phase 8's batch."""
+    return (("dp rank", TRAIN_BATCH // DP_WORLD, "train", ("bfloat16", "float32"), True),
+            ("dp rank f32 step", DP_PARITY_BATCH // DP_WORLD, "train", ("float32",), True),
+            ("tp forward", TP_BATCH, "serving", ("float32",), False))
 
 
 def mat_norm_inputs(batch, size, C, dtype, strided, mean=0.0, seed=0):
@@ -452,6 +576,18 @@ def phase_kernels(ck, shapes, bridge_shapes) -> dict:
             del x, g, b
     print("mat_norm per 100px/ngf=64 bridge batch of 256 bf16 (13 norms): "
           + ", ".join(f"{k} {v:.4f}" for k, v in bridge.items()))
+    for path, batch, gen, dtypes, _ in parallel_norm_cases():
+        path_shapes = dict(train=bridge_shapes, serving=shapes)[gen]
+        for name in dtypes:
+            plans = set()
+            for size, C in sorted(path_shapes):
+                for strided in (True, False):
+                    x, g, b = mat_norm_inputs(batch, size, C, getattr(torch, name), strided,
+                                              seed=batch + size + C)
+                    plans.add(plan_label(check(x, g, b, f"{path} B={batch} H=W={size} C={C} "
+                                                        f"{name} strided={strided}")))
+            print(f"mat_norm {path} B={batch} {name}: {len(path_shapes)} shapes match plain "
+                  f"({len(plans)} plans: {', '.join(sorted(plans))})")
     # the streaming path: 256² is too large for shared memory even split 8 ways
     batch, size, C = STREAM_SHAPE
     for dtype in (torch.bfloat16, torch.float32):
@@ -708,6 +844,12 @@ def phase_backward(ck, shapes) -> dict:
                              fwd_bound_ms=fwd_bound_ms).items():
                 if k in acc:
                     acc[k] += per_step * v
+    for path, batch, _, dtypes, backward in parallel_norm_cases():  # the 100px chain
+        for name in dtypes if backward else ():
+            plans = {plan_label(check(batch, size, C, getattr(torch, name), strided))
+                     for size, C in sorted(shapes) for strided in (False, True)}
+            print(f"mat_norm_bwd {path} B={batch} {name}: {len(shapes)} shapes match plain "
+                  f"({len(plans)} plans: {', '.join(sorted(plans))})")
     scalar_paths = set()
     for dtype in (torch.bfloat16, torch.float32):  # the scalar path: C off the 32 grid
         for batch, size, C in SCALAR_SHAPES:
@@ -933,17 +1075,17 @@ def phase_sweep(ck, card: str) -> None:
     print(f"sweep on {card}")
 
 
-def make_trainer(device, compute_dtype, d_lr=4e-4):
+def make_trainer(device, compute_dtype, d_lr=D_LR, state_dim=STATE_DIM, dp_group=None):
     import torch
 
     from s2p_tpu_torch.gan.losses import GANLossConfig
     from s2p_tpu_torch.gan.training import GANOptConfig, GANTrainer
 
     return GANTrainer.create(
-        STATE_DIM, image_size=TRAIN_SIZE, generator_kwargs=dict(ngf=64),
+        state_dim, image_size=TRAIN_SIZE, generator_kwargs=dict(ngf=64),
         discriminator_kwargs=TRAIN_D, loss_cfg=GANLossConfig(r1_gamma=1.0, r1_interval=16),
         opt_cfg=GANOptConfig(d_lr=d_lr), compute_dtype=compute_dtype, seed=0,
-        device=torch.device(device))
+        device=torch.device(device), dp_group=dp_group)
 
 
 def synthetic_pairs(n: int, seed: int):
@@ -959,6 +1101,25 @@ def synthetic_pairs(n: int, seed: int):
     return S2PPairDataset.from_dataset(dict(
         image_observations=rs.randint(0, 256, (n, TRAIN_SIZE, TRAIN_SIZE, 3), dtype=np.uint8),
         next_observations=rs.randn(n, STATE_DIM).astype(np.float32), timeouts=timeouts))
+
+
+def multi_env_pairs():
+    """BASELINE's multi-env configuration as a seeded stand-in: cheetah
+    (state 17) and walker (state 24) pair datasets of DP_ROWS uint8 100px
+    rows each, concatenated (states zero-padded to 24, env ids 0 and 1)."""
+    import numpy as np
+
+    from s2p_tpu_torch.data.pair_dataset import S2PPairDataset
+
+    envs = []
+    for seed, state_dim in ((20, STATE_DIM), (21, WALKER_STATE_DIM)):
+        rs = np.random.RandomState(seed)
+        frames = lambda: rs.randint(0, 256, (DP_ROWS, TRAIN_SIZE, TRAIN_SIZE, 3), dtype=np.uint8)
+        envs.append(S2PPairDataset.from_dataset(dict(
+            image_observations=frames(), image_observations_tp1=frames(),
+            next_observations=rs.randn(DP_ROWS, state_dim).astype(np.float32),
+            timeouts=np.zeros(DP_ROWS, np.float32))))
+    return S2PPairDataset.concat(envs)
 
 
 def check_avg_pool_backward() -> None:
@@ -1064,17 +1225,17 @@ def phase_train_throughput(ck, card: str, profile_dir: str | None) -> dict:
         trainer.g_step = trainer.d_step = 0  # so R1 fires at D steps 0 and 16 in the window
         if dtype == torch.bfloat16:
             ck.fused_mat_norm.launches = ck.fused_mat_norm_bwd.launches = 0
-        t0 = time.perf_counter()
-        metrics = [trainer.train_step(batches[i % len(batches)]) for i in range(TIMED_STEPS)]
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
-        if dtype == torch.bfloat16:
-            launches = dict(fwd=ck.fused_mat_norm.launches, bwd=ck.fused_mat_norm_bwd.launches)
+        with HostWindow() as window:
+            metrics = [trainer.train_step(batches[i % len(batches)]) for i in range(TIMED_STEPS)]
+        elapsed = window.wall
         sps = TIMED_STEPS / elapsed
+        if dtype == torch.bfloat16:
+            launches = dict(fwd=ck.fused_mat_norm.launches, bwd=ck.fused_mat_norm_bwd.launches,
+                            steps_per_s=sps)
         print(f"train throughput {name}: {sps:.3f} steps/sec, {sps * TRAIN_BATCH:.1f} "
               f"images/sec ({elapsed / TIMED_STEPS * 1e3:.2f} ms per train_step, "
               f"{TIMED_STEPS} steps, batch {TRAIN_BATCH}, 100px, ngf=64, ndf=64, VGG on, R1 "
-              f"every 16 D steps) on {card}")
+              f"every 16 D steps) on {card}; host: {window}")
         values = torch.stack([v for m in metrics for v in m.values()])
         if not torch.isfinite(values).all():
             fail(f"train_step {name}: non-finite losses")
@@ -1093,8 +1254,9 @@ def phase_train_throughput(ck, card: str, profile_dir: str | None) -> dict:
             profile_device(lambda: trainer.train_step(batches[0]), profile_dir, "train_step")
         del trainer
     expected = dict(fwd=26 * TIMED_STEPS, bwd=13 * TIMED_STEPS)
-    print(f"train main path launches (bf16 window): {launches} (expected {expected})")
-    if launches != expected:
+    counted = dict(fwd=launches["fwd"], bwd=launches["bwd"])
+    print(f"train main path launches (bf16 window): {counted} (expected {expected})")
+    if counted != expected:
         fail(f"training launched the MAT-norm kernels {launches}, expected {expected}")
     return launches
 
@@ -1994,6 +2156,460 @@ def phase_rl_experiment(ck, card: str, pretrain: dict, generated: dict,
                 act_idle=act_step["device_idle_share"])
 
 
+def hold_to_single(label: str, got: dict, ref: dict) -> None:
+    """A data-parallel f32 step against the single-process one: metrics to
+    METRIC_FLOOR relative, gradients to GRAD_FLOOR of the module's largest
+    (phase 7's floors)."""
+    e_m = max((abs(got["metrics"][k] - r) / max(abs(r), 1e-30), k)
+              for k, r in ref["metrics"].items())
+    print(f"{label}: largest metric difference {e_m[0]:.3g} ({e_m[1]}), relative")
+    if not e_m[0] <= METRIC_FLOOR:
+        fail(f"{label}: metric {e_m[1]} differs by {e_m[0]:.3g} from the single-process step")
+    for mod, grads in ref["grads"].items():
+        scale = max(g.abs().max().item() for g in grads.values())
+        e_g = max(((got["grads"][mod][k] - g).abs().max().item() / scale, k)
+                  for k, g in grads.items())
+        print(f"{label}: largest {mod} gradient difference {e_g[0]:.3g} of the largest "
+              f"|gradient| {scale:.3g} ({e_g[1]})")
+        if not e_g[0] <= GRAD_FLOOR:
+            fail(f"{label}: {mod} gradient {e_g[1]} differs by {e_g[0]:.3g}")
+
+
+class SlopeMasks:
+    """The slope each ReLU and leaky ReLU of a step takes (every one in G,
+    D, VGG and the hinge losses is an ``F.relu`` or ``F.leaky_relu`` call):
+    ``with masks.record():`` around one step keeps which pre-activations
+    were positive, call by call; ``with masks.replay():`` around the same
+    step on other inputs' precision gives each call those slopes instead
+    of its own, and counts the entries whose own sign differs (``flips``).
+    A pre-activation within float noise of zero takes one slope in f32 and
+    the other in f64, and one such flip moves a weight gradient by up to
+    ~1e-2 of the module's largest; against an f64 step that replays the
+    f32 step's slopes, the f32 step differs by its arithmetic alone."""
+
+    def __init__(self):
+        self.masks: list = []
+        self.flips = self._i = 0
+
+    def shard(self, rank: int, world: int) -> "SlopeMasks":
+        """The slopes of data-parallel rank ``rank`` of ``world``: each
+        call's rows [rank·b/world, (rank + 1)·b/world) (every ReLU input of
+        the step is batch-first)."""
+        part = SlopeMasks()
+        part.masks = [m[rank * len(m) // world:(rank + 1) * len(m) // world]
+                      for m in self.masks]
+        return part
+
+    @contextlib.contextmanager
+    def record(self):
+        with self._patched(self._record):
+            yield self
+
+    @contextlib.contextmanager
+    def replay(self):
+        self.flips = self._i = 0
+        with self._patched(self._replay):
+            yield self
+        if self._i != len(self.masks):
+            fail(f"slope replay: {self._i} ReLU calls against {len(self.masks)} recorded")
+
+    @contextlib.contextmanager
+    def _patched(self, apply):
+        import torch.nn.functional as F
+
+        relu, leaky = F.relu, F.leaky_relu
+        F.relu = lambda x, inplace=False: apply(x, 0.0, lambda: relu(x, inplace))
+        F.leaky_relu = lambda x, negative_slope=0.01, inplace=False: apply(
+            x, negative_slope, lambda: leaky(x, negative_slope, inplace))
+        try:
+            yield
+        finally:
+            F.relu, F.leaky_relu = relu, leaky
+
+    def _record(self, x, slope, original):
+        self.masks.append((x > 0).detach().cpu())
+        return original()
+
+    def _replay(self, x, slope, original):
+        import torch
+
+        if self._i >= len(self.masks) or self.masks[self._i].shape != x.shape:
+            fail(f"slope replay: call {self._i} on {tuple(x.shape)} does not match the record")
+        mask = self.masks[self._i].to(x.device)
+        self._i += 1
+        self.flips += int((mask != (x > 0)).sum())
+        return torch.where(mask, x, slope * x)
+
+
+def step_record(trainer, metrics) -> dict:
+    return dict(metrics={k: v.item() for k, v in metrics.items()},
+                grads={mod: {k: p.grad.detach().clone() for k, p in
+                             getattr(trainer, mod).named_parameters()}
+                       for mod in ("generator", "discriminator")})
+
+
+def phase_dp_nccl(ck, card: str, single_sps: float) -> dict:
+    """Phase 20a: data parallelism at world 1 over NCCL (a TCP store on
+    127.0.0.1, this card): the per-step path and ``train_many_dp`` held in
+    f32 (TF32 off, cuDNN deterministic) to the single-process
+    ``train_step``/``train_many`` with the same draws; DP_STEPS timed bf16
+    DP steps in turns with a single-process trainer, beside phase 8's rate
+    and the single-process rate before the group existed; the gradient
+    sync alone in device ms. Returns the DP window's MAT-norm launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from s2p_tpu_torch.parallel import MeshSpec, make_mesh, shard_batch
+    from s2p_tpu_torch.parallel.distributed import free_port, initialize_distributed
+
+    ds = multi_env_pairs()
+    batches = list(ds.batches(TRAIN_BATCH, np.random.RandomState(0)))
+    host = dict(prev_image=ds.prev_images, state=ds.states, target_image=ds.target_images)
+
+    def timed(tr, lo: int, seconds: dict, name: str) -> list:
+        """DP_STEPS / 2 bf16 steps of ``tr`` on batches lo, lo + 1, ..."""
+        with HostWindow() as window:
+            out = [tr.train_step(shard_batch(mesh, batches[j % len(batches)]))
+                   for j in range(lo, lo + DP_STEPS // 2)]
+        seconds[name] = seconds.get(name, 0.0) + window.wall
+        print(f"dp nccl window {name}, batches {lo}-{lo + DP_STEPS // 2 - 1}: "
+              f"{DP_STEPS / 2 / window.wall:.3f} steps/sec; host: {window}")
+        return out
+
+    # the single-process step before any process group exists, to see what
+    # the group's own threads cost the host
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, as phase 8
+    mesh = make_mesh(MeshSpec(data=1))
+    single = make_trainer("cuda", torch.bfloat16, state_dim=WALKER_STATE_DIM)
+    seconds: dict = {}
+    for b in batches[:2]:  # warm-up
+        single.train_step(b)
+    metrics = timed(single, 0, seconds, "single, no group")
+    # the same again once the caching allocator has returned the blocks that
+    # earlier phases left cached: whether its state costs this late process
+    # host time (one R1 step in each window)
+    torch.cuda.empty_cache()
+    single.g_step = single.d_step = 0
+    metrics += timed(single, 0, seconds, "single, no group, cache emptied")
+
+    initialize_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, backend="nccl",
+                           device=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh(MeshSpec(data=1))
+        group = mesh.groups["data"]
+        staged = {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}
+        # deterministic cuDNN algorithms, so that the two runs differ only by
+        # what data parallelism changes (at world 1: nothing)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        ref_tr = make_trainer("cuda", torch.float32, state_dim=WALKER_STATE_DIM)
+        dp = copy.deepcopy(ref_tr)
+        dp.dp_group = group
+        # each step from the same state all the same: Adam's first steps turn
+        # a gradient within noise of zero into a ±lr move
+        for i, b in enumerate(batches[:2]):
+            dp.load_state_dict(copy.deepcopy(ref_tr.state_dict()))  # Adam's load aliases
+            ref = step_record(ref_tr, ref_tr.train_step(b))
+            got = step_record(dp, dp.train_step(shard_batch(mesh, b)))
+            hold_to_single(f"dp nccl world 1 per-step, step {i + 1}", got, ref)
+        # train_many_dp with both learning rates 0, so every step of both
+        # runs sees the same weights: the metrics averaged over the steps
+        # and the last step's gradients
+        dp.load_state_dict(copy.deepcopy(ref_tr.state_dict()))
+        for opt in (ref_tr.g_opt, ref_tr.d_opt, dp.g_opt, dp.d_opt):
+            for param_group in opt.param_groups:
+                param_group["lr"] = 0.0
+        gen = lambda: torch.Generator(device="cuda").manual_seed(7)
+        ref = step_record(ref_tr, ref_tr.train_many(staged, 2, TRAIN_BATCH, gen()))
+        got = step_record(dp, dp.train_many_dp(mesh, host, 2, TRAIN_BATCH, gen()))
+        hold_to_single("dp nccl world 1 train_many_dp, 2 steps at lr 0", got, ref)
+        del ref_tr, dp
+        torch.backends.cudnn.deterministic = False
+
+        # the rate: the DP trainer and the single-process one (a copy of the
+        # same weights), in turns (single, dp, dp, single; DP_STEPS / 2 steps
+        # a window), each from step 0 so that R1 fires at D steps 0 and 16
+        torch.backends.cudnn.allow_tf32 = True
+        trainer = copy.deepcopy(single)
+        trainer.dp_group = group
+        launches = dict(fwd=0, bwd=0)
+        for b in batches[:2]:  # warm-up
+            trainer.train_step(shard_batch(mesh, b))
+        single.g_step = single.d_step = trainer.g_step = trainer.d_step = 0
+        half = DP_STEPS // 2
+        for tr, name, lo in ((single, "single", 0), (trainer, "dp", 0), (trainer, "dp", half),
+                             (single, "single", half)):
+            ck.fused_mat_norm.launches = ck.fused_mat_norm_bwd.launches = 0
+            metrics += timed(tr, lo, seconds, name)
+            if name == "dp":
+                launches["fwd"] += ck.fused_mat_norm.launches
+                launches["bwd"] += ck.fused_mat_norm_bwd.launches
+        del single
+        if not torch.isfinite(torch.stack([v for m in metrics for v in m.values()])).all():
+            fail("dp nccl: non-finite losses")
+        sps, single_here = DP_STEPS / seconds["dp"], DP_STEPS / seconds["single"]
+        before = DP_STEPS / 2 / seconds["single, no group"]
+        print(f"dp nccl world 1 (bf16, batch {TRAIN_BATCH}, cheetah + walker): {sps:.3f} "
+              f"steps/sec, {sps * TRAIN_BATCH:.1f} images/sec ({1e3 / sps:.2f} ms per step, "
+              f"{DP_STEPS} steps); the single-process trainer in turns with it: "
+              f"{single_here:.3f} steps/sec ({1e3 / single_here:.2f} ms), DP / single "
+              f"{sps / single_here:.3f}; the single-process trainer before the group existed: "
+              f"{before:.3f} steps/sec ({DP_STEPS // 2} steps); phase 8's train_step in this "
+              f"call: {single_sps:.3f} steps/sec on {card}")
+        expected = dict(fwd=26 * DP_STEPS, bwd=13 * DP_STEPS)
+        print(f"dp nccl launches: {launches} (expected {expected})")
+        if launches != expected:
+            fail(f"dp nccl launched the MAT-norm kernels {launches}, expected {expected}")
+        g_grads = [p.grad for p in trainer.generator.parameters()]
+        d_grads = [p.grad for p in trainer.discriminator.parameters()]
+        sync = lambda: (trainer.sync_grads(d_grads), trainer.sync_grads(g_grads))
+        stream_ms = time_ms(sync)
+        prof = profile_device(sync, None, "dp_sync")
+        sync_ms = prof["device_busy_ms"]
+        n_bytes = 4 * sum(g.numel() for g in g_grads + d_grads)
+        print(f"dp nccl gradient sync (the flatten, two all-reduces, the copies back; "
+              f"{n_bytes / 1e6:.1f} MB of f32): {sync_ms:.4f} ms of device time per step "
+              f"(profiler, {prof['launches']} launches), {100 * sync_ms * sps / 1e3:.2f}% of the "
+              f"step; {stream_ms:.4f} ms between CUDA events around it (the stream's time, host "
+              f"gaps between launches included) on {card}")
+        del trainer
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def dp_gloo_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
+    """One rank of phase 20b (gloo, every rank on this card): the protocol's
+    trainer broadcast from rank 0, one f32 DP step (TF32 off, D's learning
+    rate 0, the ReLU slopes of its rows of the card's single-process step
+    replayed; rank 0 saves it for the comparisons), then 2 bf16 per-step DP
+    steps and 2 bf16 ``train_many_dp`` steps; after every step the ranks'
+    state checksums
+    must agree, and every step must launch 26 forward and 13 backward
+    MAT-norm kernels."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from s2p_tpu_torch.gan import cuda_kernels as ck
+    from s2p_tpu_torch.parallel import (MeshSpec, make_mesh, shard_batch, shard_pytree,
+                                        state_checksum)
+    from s2p_tpu_torch.parallel.distributed import initialize_distributed
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed(init_method, world, rank, backend="gloo")
+    mesh = make_mesh(MeshSpec(data=world))
+    ds = multi_env_pairs()
+    batches = list(ds.batches(TRAIN_BATCH, np.random.RandomState(0)))
+    parity = next(ds.batches(DP_PARITY_BATCH, np.random.RandomState(0)))
+    host = dict(prev_image=ds.prev_images, state=ds.states, target_image=ds.target_images)
+    trainer = make_trainer("cuda", torch.float32, d_lr=0.0, state_dim=WALKER_STATE_DIM,
+                           dp_group=mesh.groups["data"])
+    for obj in (trainer.generator, trainer.discriminator, trainer.g_opt, trainer.d_opt):
+        shard_pytree(mesh, obj)
+    sampler = torch.Generator(device="cuda").manual_seed(100 + rank)
+    slopes = SlopeMasks()
+    slopes.masks = torch.load(os.path.join(out_dir, f"slopes{rank}.pt"))
+
+    def f32_step():
+        with slopes.replay():
+            return trainer.train_step(shard_batch(mesh, parity))
+
+    steps = [("f32 per-step", f32_step)]
+    steps += [("bf16 per-step", lambda i=i: trainer.train_step(shard_batch(mesh, batches[i])))
+              for i in (1, 2)]
+    steps += [("bf16 train_many_dp", lambda: trainer.train_many_dp(mesh, host, 1, TRAIN_BATCH,
+                                                                   sampler))] * 2
+    report = dict(rank=rank, steps=[])
+    for i, (name, run) in enumerate(steps):
+        if i == 1:  # the protocol: bf16 compute, cuDNN TF32 on (PyTorch's default), D's lr
+            trainer.compute_dtype = torch.bfloat16
+            torch.backends.cudnn.allow_tf32 = True
+            for param_group in trainer.d_opt.param_groups:
+                param_group["lr"] = D_LR
+        before = (ck.fused_mat_norm.launches, ck.fused_mat_norm_bwd.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = (ck.fused_mat_norm.launches - before[0],
+                    ck.fused_mat_norm_bwd.launches - before[1])
+        sums = [None] * world
+        dist.all_gather_object(sums, state_checksum(trainer.generator, trainer.discriminator,
+                                                    trainer.g_opt, trainer.d_opt))
+        report["steps"].append(dict(name=name, seconds=seconds, launches=launches,
+                                    checksums=sums,
+                                    metrics={k: v.item() for k, v in metrics.items()}))
+        if i == 0 and rank == 0:
+            record = step_record(trainer, metrics)
+            record["params"] = {mod: dict(getattr(trainer, mod).named_parameters())
+                                for mod in ("generator", "discriminator")}
+            for part in ("grads", "params"):
+                record[part] = {mod: {k: v.detach().cpu() for k, v in named.items()}
+                                for mod, named in record[part].items()}
+            torch.save(record, os.path.join(out_dir, "step1.pt"))
+        if len(set(sums)) != 1:
+            raise RuntimeError(f"rank {rank}: state checksums differ after step {i + 1}: {sums}")
+        if launches != (26, 13):
+            raise RuntimeError(f"rank {rank}: step {i + 1} launched {launches} MAT-norm kernels")
+    report["flips"] = slopes.flips
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+
+
+def phase_dp_gloo(card: str) -> dict:
+    """Phase 20b: DP_WORLD gloo ranks on this one card (spawned), each
+    step's state bit-identical across the ranks; the f32 first step (D's
+    learning rate 0, as phase 7's) held to the card's single-process f32
+    step on the same global batch (phase 7's floors), and to that step in
+    f64 on the CPU as phase 7 holds its step (within PARITY_SLACK times the
+    CPU's f32 step's distance, or the floor), with every ReLU's slope in
+    the CPU's f64 and f32 steps replayed from the card's single-process
+    step (``SlopeMasks``); the MAT-norm launches per rank and step; and the
+    rate: gloo through the host on one card, a correctness check and not a
+    multi-card number."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_", dir="build") as out_dir:
+        return _phase_dp_gloo(card, out_dir)
+
+
+def _phase_dp_gloo(card: str, out_dir: str) -> dict:
+    import numpy as np
+    import torch
+
+    from s2p_tpu_torch.parallel.distributed import spawn_ranks
+
+    batch = next(multi_env_pairs().batches(DP_PARITY_BATCH, np.random.RandomState(0)))
+    torch.backends.cudnn.allow_tf32 = False
+    masks, runs, flips = SlopeMasks(), {}, {}
+
+    def step(name, device, dtype, slopes):
+        trainer = make_trainer(device, dtype, d_lr=0.0, state_dim=WALKER_STATE_DIM)
+        with slopes():
+            metrics = trainer.train_step(batch)
+        if slopes == masks.replay:
+            flips[name] = masks.flips
+        rec = step_record(trainer, metrics)
+        rec["params"] = {mod: dict(getattr(trainer, mod).named_parameters())
+                         for mod in ("generator", "discriminator")}
+        for part in ("grads", "params"):
+            rec[part] = {mod: _f64(named.items()) for mod, named in rec[part].items()}
+        runs[name] = rec
+
+    step("cuda f32 single", "cuda", torch.float32, masks.record)
+    for r in range(DP_WORLD):
+        torch.save(masks.shard(r, DP_WORLD).masks, os.path.join(out_dir, f"slopes{r}.pt"))
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(spawn_ranks, dp_gloo_rank, DP_WORLD, (out_dir,), timeout=600)
+        step("cpu f64", "cpu", torch.float64, masks.replay)
+        step("cpu f32", "cpu", torch.float32, masks.replay)
+        # the same steps with their own slopes, to show what the replay removes
+        step("cpu f64, own slopes", "cpu", torch.float64, contextlib.nullcontext)
+        step("cpu f32, own slopes", "cpu", torch.float32, contextlib.nullcontext)
+        try:
+            ranks.result()
+        except RuntimeError as err:
+            fail(f"dp gloo: {err}")
+    reports = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    runs["cuda f32"] = dp = torch.load(os.path.join(out_dir, "step1.pt"), weights_only=False)
+    for part in ("grads", "params"):
+        dp[part] = {mod: _f64(named.items()) for mod, named in dp[part].items()}
+    single = runs.pop("cuda f32 single")
+    hold_to_single(f"dp gloo step 1 ({DP_WORLD} ranks) against the card's single-process step",
+                   dp, single)
+    ref, cpu = runs.pop("cpu f64, own slopes"), runs.pop("cpu f32, own slopes")
+    for mod, grads in ref["grads"].items():
+        scale = max(g.abs().max().item() for g in grads.values())
+        e_card, e_cpu = (max(((r["grads"][mod][k] - g).abs().max().item() / scale, k)
+                             for k, g in grads.items()) for r in (single, cpu))
+        print(f"dp gloo step 1, each step with its own slopes: {mod} gradients of the card's "
+              f"single-process f32 step {e_card[0]:.3g} ({e_card[1]}) from f64, the CPU's f32 "
+              f"step {e_cpu[0]:.3g} ({e_cpu[1]}), of the largest |gradient| {scale:.3g}")
+    print(f"dp gloo step 1: every ReLU's slope ({len(masks.masks)} calls) replayed from the "
+          f"card's single-process f32 step; entries whose own sign differs: the ranks "
+          f"{[rep['flips'] for rep in reports]}, the CPU's f64 step {flips['cpu f64']}, its f32 "
+          f"step {flips['cpu f32']}")
+    hold_to_f64("dp gloo step 1 metrics", {n: r["metrics"] for n, r in runs.items()}, "metric")
+    for mod, lr in (("generator", 1e-4), ("discriminator", 0.0)):
+        for part, kind in (("grads", "grad"), ("params", "param")):
+            hold_to_f64(f"dp gloo step 1 {mod} {part}",
+                        {n: r[part][mod] for n, r in runs.items()}, kind, lr=lr)
+    protocol = reports[0]["steps"][1:]
+    seconds = sum(s["seconds"] for s in protocol)
+    for rep in reports:
+        print(f"dp gloo rank {rep['rank']}: " + "; ".join(
+            f"{s['name']} {s['seconds'] * 1e3:.1f} ms, launches {s['launches'][0]}/"
+            f"{s['launches'][1]}, checksum {s['checksums'][0]}" for s in rep["steps"]))
+    print(f"dp gloo ({DP_WORLD} ranks through the host on one card; a correctness check, not a "
+          f"multi-card rate): {len(protocol) / seconds:.3f} steps/sec at the protocol (bf16, "
+          f"global batch {TRAIN_BATCH}), {seconds / len(protocol) * 1e3:.1f} ms per step; every "
+          f"step's state bit-identical across the ranks on {card}")
+    launches = [sum(s["launches"][j] for rep in reports for s in rep["steps"]) for j in (0, 1)]
+    return dict(fwd=launches[0], bwd=launches[1])
+
+
+def phase_tp(gen_cpu, card: str) -> int:
+    """Phase 20c: the serving generator (64px, ngf 64) tensor-parallel over
+    a data=1 x model=DP_WORLD mesh of gloo ranks on this card
+    (``model_shard_params``, min_features TP_MIN_FEATURES), each rank's
+    forward held to the replicated forward on the card in f32 (TF32 off) to
+    TP_TOL; returns the MAT-norm launches of the ranks' forwards."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_", dir="build") as out_dir:
+        return _phase_tp(gen_cpu, card, out_dir)
+
+
+def _phase_tp(gen_cpu, card: str, out_dir: str) -> int:
+    import numpy as np
+    import torch
+
+    from s2p_tpu_torch.parallel.distributed import spawn_ranks
+    from s2p_tpu_torch.testing import tp_worker
+
+    rs = np.random.RandomState(30)
+    spec = dict(state_dim=STATE_DIM, kwargs=FULL, g=gen_cpu.state_dict(),
+                min_features=TP_MIN_FEATURES, device="cuda",
+                state=rs.randn(TP_BATCH, STATE_DIM).astype(np.float32),
+                prev_image=(rs.rand(TP_BATCH, 64, 64, 3) * 2 - 1).astype(np.float32))
+    torch.save(spec, os.path.join(out_dir, "spec.pt"))
+    try:
+        spawn_ranks(tp_worker.run, DP_WORLD, (os.path.join(out_dir, "spec.pt"), out_dir),
+                    timeout=300)
+    except RuntimeError as err:
+        fail(f"tp: {err}")
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.no_grad():
+        ref = copy.deepcopy(gen_cpu).to("cuda")(torch.as_tensor(spec["state"], device="cuda"),
+                                               torch.as_tensor(spec["prev_image"],
+                                                               device="cuda")).cpu()
+    total = 0
+    for r in range(DP_WORLD):
+        res = torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+        err = (res["out"] - ref).abs().max().item()
+        print(f"tp rank {r}: {len(res['sharded'])} layers sharded (e.g. "
+              f"{next(iter(res['sharded'].items()), None)}), |sharded - replicated| {err:.3g} "
+              f"(limit {TP_TOL} + {TP_TOL} x |replicated|), {res['launches']} MAT-norm launches "
+              f"in one forward on {card}")
+        if not res["sharded"]:
+            fail("tp: no layer was sharded")
+        if not torch.allclose(res["out"], ref, rtol=TP_TOL, atol=TP_TOL):
+            fail(f"tp rank {r}: the sharded forward is {err:.3g} from the replicated one")
+        if res["launches"] != 13:
+            fail(f"tp rank {r}: {res['launches']} MAT-norm launches, expected 13")
+        total += res["launches"]
+    return total
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -2107,10 +2723,29 @@ def main() -> None:
     phase_acting_parity()
     rl = phase_rl_experiment(ck, card, pretrain, generated, args.profile)
 
+    # phase 20: data-parallel GAN training on the multi-env configuration (a
+    # main path each: world 1 over NCCL, 2 gloo ranks on this card) and the
+    # tensor-parallel generator
+    t0 = time.time()
+    dp_nccl = phase_dp_nccl(ck, card, training["steps_per_s"])
+    print(f"phase 20a: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    dp_gloo = phase_dp_gloo(card)
+    print(f"phase 20b: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    tp = phase_tp(gen_cpu, card)
+    print(f"phase 20c: {time.time() - t0:.1f} s")
+
     by_path = dict(serving=serving["launches"], training=training["fwd"], bridge=bridge,
                    gb_int8=gb_int8, slac_pretrain=pretrain["launches"], slac_iql=iql["launches"],
                    cql_slac=cql["launches"], eval_metrics=evals["launches"],
-                   rl_loop=rl["launches"])
+                   rl_loop=rl["launches"], dp_nccl=dp_nccl["fwd"], dp_gloo=dp_gloo["fwd"],
+                   tp=tp)
+    bwd_by_path = dict(serving=0, training=training["bwd"], bridge=0, gb_int8=0,
+                       slac_pretrain=pretrain["bwd_launches"], slac_iql=iql["bwd_launches"],
+                       cql_slac=cql["bwd_launches"], eval_metrics=evals["bwd_launches"],
+                       rl_loop=rl["bwd_launches"], dp_nccl=dp_nccl["bwd"],
+                       dp_gloo=dp_gloo["bwd"], tp=0)
     fwd_record = dict(
         name="fused_mat_norm", route="cuda", source="s2p_tpu_torch/csrc/fused_mat_norm.cu",
         replaces="s2p_tpu/gan/pallas_kernels.py:49", launches=sum(by_path.values()),
@@ -2134,11 +2769,8 @@ def main() -> None:
     )
     bwd_record = dict(
         name="fused_mat_norm_bwd", route="cuda", source="s2p_tpu_torch/csrc/fused_mat_norm.cu",
-        replaces="s2p_tpu/gan/pallas_kernels.py:49", launches=training["bwd"],
-        launches_by_path=dict(serving=0, training=training["bwd"], bridge=0, gb_int8=0,
-                              slac_pretrain=pretrain["bwd_launches"],
-                              slac_iql=iql["bwd_launches"], cql_slac=cql["bwd_launches"],
-                              eval_metrics=evals["bwd_launches"], rl_loop=rl["bwd_launches"]),
+        replaces="s2p_tpu/gan/pallas_kernels.py:49", launches=sum(bwd_by_path.values()),
+        launches_by_path=bwd_by_path,
         max_abs_err=bwd["max_abs_err"], max_abs_err_bf16=bwd["max_abs_err_bf16"],
         ms=bwd["ms"], plain_ms=bwd["plain_ms"], bound_ms=bwd["bound_ms"], bound_by="bytes",
         library_ms=None, wall_ms=bwd["wall_ms"],

@@ -15,6 +15,25 @@ end) the generator is written as ``{env}_{epoch}.pkl`` (JAX params) and
 ``--gpu_ids``: ``0`` (the default) runs on ``cuda:0``, ``-1`` on the CPU.
 Without CUDA any id other than -1 is an error; the CLI never falls back to
 the CPU on its own.
+
+Data-parallel training over N processes, one per card, under ``torchrun``
+(the JAX CLI's multi-device branch):
+
+    torchrun --nproc_per_node N -m s2p_tpu_torch.cli.train_gan \
+        --dataroot cheetah.hdf5,walker.hdf5 --gpu_ids 0,1,... --bf16
+
+Local rank r runs on ``--gpu_ids``' r-th card (NCCL when every rank has
+its own; ``0,0`` puts two ranks on one card over gloo, ``-1`` runs every
+rank on the CPU over gloo). ``--batchSize`` is the global batch and must
+divide over the ranks. The per-step path draws the same shuffled batches
+on every rank and trains each rank on its contiguous part; the scanned
+path (``--scan_chunk > 1``) stages each rank's contiguous part of the
+dataset on its card (``GANTrainer.train_many_dp``), after dropping the
+trailing rows beyond a multiple of the ranks. Gradients and metrics are
+averaged over the ranks every step. Parameters and optimizer state are
+broadcast from rank 0 after creation, ``--init_g`` and ``--resume_dir``;
+rank 0 alone logs, evaluates and writes checkpoints and the resume state,
+and the other ranks wait for it at the end of each epoch.
 """
 
 from __future__ import annotations
@@ -27,6 +46,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -41,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["s2p", "sat_state", "sat_image"])
     p.add_argument("--batchSize", type=int, default=16)
     p.add_argument("--gpu_ids", type=str, default="0",
-                   help="CUDA device index (first of a comma list); -1 runs on the CPU")
+                   help="CUDA device index; under torchrun, local rank r takes the r-th of "
+                        "a comma list; -1 runs on the CPU")
     p.add_argument("--niter", type=int, default=30, help="training epochs")
     p.add_argument("--save_epoch_freq", type=int, default=10)
     p.add_argument("--checkpoints_dir", type=str, default="./checkpoints")
@@ -131,12 +152,48 @@ def evaluate_generator(trainer, ds, n: int, batch_size: int = 64) -> dict:
     return out
 
 
-def main(argv: Optional[list] = None) -> str:
-    args = build_parser().parse_args(argv)
+class _Silent:
+    """The logger of a rank other than 0: rank 0 alone logs."""
 
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
+def rank_devices(gpu_ids: str) -> list:
+    """The device of each local rank under torchrun (of one process when
+    not under it): the r-th id of ``gpu_ids`` for local rank r, or the CPU
+    for every rank with ``-1``."""
     from s2p_tpu_torch.cli.simple_test import resolve_device
 
-    device = resolve_device(args.gpu_ids)
+    ids = gpu_ids.split(",")
+    n_local = int(os.environ.get("LOCAL_WORLD_SIZE", 1))
+    if int(ids[0]) < 0:
+        return [torch.device("cpu")] * n_local
+    if len(ids) < n_local:
+        raise ValueError(f"--gpu_ids={gpu_ids} names {len(ids)} card(s) for {n_local} "
+                         "local ranks")
+    return [resolve_device(i) for i in ids[:n_local]]
+
+
+def main(argv: Optional[list] = None) -> Optional[str]:
+    """Trains; returns rank 0's log dir (None on the other ranks)."""
+    args = build_parser().parse_args(argv)
+
+    from s2p_tpu_torch.parallel import (MeshSpec, make_mesh, shard_batch, shard_pytree,
+                                        state_checksum)
+    from s2p_tpu_torch.parallel.distributed import (
+        initialize_distributed, local_rank, ranks_backend)
+
+    devices = rank_devices(args.gpu_ids)
+    device = devices[local_rank()]
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    distributed = initialize_distributed(backend=ranks_backend(devices), device=device)
+    mesh = make_mesh(MeshSpec(data=-1, model=1))
+    n_data, rank = mesh.shape["data"], mesh.coords["data"]
+    if args.batchSize % n_data:
+        raise ValueError(f"batchSize {args.batchSize} must divide over {n_data} data-parallel "
+                         "devices")
 
     from s2p_tpu_torch.data.pair_dataset import S2PPairDataset
     from s2p_tpu_torch.gan.convert import load_generator_checkpoint, save_generator_checkpoint
@@ -146,8 +203,9 @@ def main(argv: Optional[list] = None) -> str:
     from s2p_tpu_torch.utils.seeding import set_seed
 
     set_seed(args.seed)
-    logger, log_dir = setup_logger(f"s2p_{args.env_type}", variant=vars(args),
-                                   base_log_dir=args.log_dir, seed=args.seed)
+    logger, log_dir = (setup_logger(f"s2p_{args.env_type}", variant=vars(args),
+                                    base_log_dir=args.log_dir, seed=args.seed)
+                       if rank == 0 else (_Silent(), None))
 
     ds = S2PPairDataset.from_hdf5(args.dataroot, args.data_num)
     H = ds.image_shape[0]
@@ -174,7 +232,7 @@ def main(argv: Optional[list] = None) -> str:
                                r1_interval=args.r1_interval),
         use_perceptual=not args.no_vgg_loss, vgg_state_dict=vgg_sd,
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        d_every=args.d_every, seed=args.seed, device=device)
+        d_every=args.d_every, seed=args.seed, device=device, dp_group=mesh.groups["data"])
 
     if args.init_g:
         load_generator_checkpoint(args.init_g, trainer.generator)
@@ -205,27 +263,41 @@ def main(argv: Optional[list] = None) -> str:
             logger.log(f"resumed from {args.resume_dir} at epoch {latest}"
                        + (f" (best PSNR {best_psnr:.2f} @ epoch {best_epoch})"
                           if best_epoch is not None else ""))
+    if distributed:
+        replicas = (trainer.generator, trainer.discriminator, trainer.g_opt, trainer.d_opt)
+        for obj in replicas:
+            shard_pytree(mesh, obj)
+        print(f"rank {rank} of {n_data} on {device}: start epoch {start_epoch}, steps "
+              f"{trainer.g_step}/{trainer.d_step}, state checksum {state_checksum(*replicas)}",
+              flush=True)
 
     rng = np.random.RandomState(args.seed + start_epoch)
     step = 0
     last_eval = None
     t_start = time.time()
 
-    device_data = None
+    data = None
     if args.scan_chunk > 1:
-        # the whole dataset on the device once, uint8 frames at 1 B/px
-        device_data = dict(prev_image=torch.as_tensor(ds.prev_images, device=device),
-                           state=torch.as_tensor(ds.states, device=device),
-                           target_image=torch.as_tensor(ds.target_images, device=device))
+        # each rank stages its contiguous shard of the rows (at one process:
+        # every row), at 1 B/px, once, in train_many_dp's first call
+        n = len(ds) - len(ds) % n_data
+        if n != len(ds):
+            logger.log(f"DP sharding: dropped {len(ds) - n} trailing row(s) to make the "
+                       f"dataset divide over {n_data} devices ({n} rows kept)")
+        data = dict(prev_image=ds.prev_images, state=ds.states, target_image=ds.target_images)
         logger.log(f"scan_chunk={args.scan_chunk}: dataset staged on {device} "
-                   f"({sum(v.nbytes for v in device_data.values()) / 1e9:.2f} GB)")
+                   f"({sum(v[:n].nbytes for v in data.values()) / n_data / 1e9:.2f} GB"
+                   + (f", sharded over {n_data} devices)" if n_data > 1 else ")"))
         sampler = torch.Generator(device=device)
+        # a sampling stream per (seed, epoch, chunk), whatever the epoch
+        # length, and per rank under data parallelism
+        stream = (rank,) if n_data > 1 else ()
 
     def host(metrics) -> dict:
         return {k: float(v) for k, v in metrics.items()}
 
     for epoch in range(start_epoch, args.niter + 1):
-        if device_data is not None:
+        if data is not None:
             # one epoch = len(ds)//batchSize updates, run in chunks
             steps_per_epoch = max(len(ds) // args.batchSize, 1)
             if args.max_steps:
@@ -233,9 +305,8 @@ def main(argv: Optional[list] = None) -> str:
             done_in_epoch = 0
             while done_in_epoch < steps_per_epoch:
                 chunk = min(args.scan_chunk, steps_per_epoch - done_in_epoch)
-                # a sampling stream per (seed, epoch, chunk), whatever the epoch length
-                sampler.manual_seed(hash((args.seed, epoch, done_in_epoch)) % 2**63)
-                metrics = trainer.train_many(device_data, chunk, args.batchSize, sampler)
+                sampler.manual_seed(hash((args.seed, epoch, done_in_epoch) + stream) % 2**63)
+                metrics = trainer.train_many_dp(mesh, data, chunk, args.batchSize, sampler)
                 step += chunk
                 done_in_epoch += chunk
                 m = host(metrics)
@@ -243,8 +314,9 @@ def main(argv: Optional[list] = None) -> str:
                            f"({step / max(time.time() - t_start, 1e-9):.1f} it/s cum): "
                            + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())))
         else:
+            # every rank draws the same batches and trains on its part
             for batch in ds.batches(args.batchSize, rng):
-                metrics = trainer.train_step(batch)
+                metrics = trainer.train_step(shard_batch(mesh, batch))
                 step += 1
                 if step % args.log_interval == 0:
                     logger.log(f"epoch {epoch} step {step}: " + " ".join(
@@ -254,36 +326,42 @@ def main(argv: Optional[list] = None) -> str:
         logger.record_tabular("epoch", epoch)
         logger.record_tabular("step", step)
         logger.record_dict(host(metrics))
-        if args.eval_interval and (epoch == start_epoch or epoch % args.eval_interval == 0):
-            last_eval = evaluate_generator(trainer, ds, args.eval_num)
-            if not args.no_save_best and last_eval["psnr"] > best_psnr:
-                best_psnr, best_epoch = last_eval["psnr"], epoch
-                save("best")
-                logger.log(f"new best PSNR {best_psnr:.2f} at epoch {epoch} "
-                           f"→ {args.env_type}_best.pkl")
-        if last_eval is not None:
-            if not args.no_save_best:
-                # numeric before any finite-PSNR eval: the frozen csv header
-                # must stay parseable
-                logger.record_tabular(
-                    "eval/best_psnr", best_psnr if best_epoch is not None else float("nan"))
-                logger.record_tabular(
-                    "eval/best_epoch", best_epoch if best_epoch is not None else -1)
-            # every epoch, so the frozen csv header holds the eval columns
-            logger.record_dict(last_eval, prefix="eval/")
-        logger.record_tabular("time_s", round(time.time() - t_start, 1))
-        logger.dump_tabular()
-        if epoch % args.save_epoch_freq == 0 or epoch == args.niter:
-            save(epoch)
-        if ckpt_mgr is not None:
-            state = trainer.state_dict()
-            # carry the best-PSNR tracker through a resume, so a worse later
-            # eval cannot overwrite {env}_best
-            state["best"] = [best_psnr, -1.0 if best_epoch is None else float(best_epoch)]
-            ckpt_mgr.save(epoch, state)
+        if rank == 0:  # evaluation, checkpoints and the progress row
+            if args.eval_interval and (epoch == start_epoch
+                                       or epoch % args.eval_interval == 0):
+                last_eval = evaluate_generator(trainer, ds, args.eval_num)
+                if not args.no_save_best and last_eval["psnr"] > best_psnr:
+                    best_psnr, best_epoch = last_eval["psnr"], epoch
+                    save("best")
+                    logger.log(f"new best PSNR {best_psnr:.2f} at epoch {epoch} "
+                               f"→ {args.env_type}_best.pkl")
+            if last_eval is not None:
+                if not args.no_save_best:
+                    # numeric before any finite-PSNR eval: the frozen csv
+                    # header must stay parseable
+                    logger.record_tabular(
+                        "eval/best_psnr", best_psnr if best_epoch is not None else float("nan"))
+                    logger.record_tabular(
+                        "eval/best_epoch", best_epoch if best_epoch is not None else -1)
+                # every epoch, so the frozen csv header holds the eval columns
+                logger.record_dict(last_eval, prefix="eval/")
+            logger.record_tabular("time_s", round(time.time() - t_start, 1))
+            logger.dump_tabular()
+            if epoch % args.save_epoch_freq == 0 or epoch == args.niter:
+                save(epoch)
+            if ckpt_mgr is not None:
+                state = trainer.state_dict()
+                # carry the best-PSNR tracker through a resume, so a worse
+                # later eval cannot overwrite {env}_best
+                state["best"] = [best_psnr, -1.0 if best_epoch is None else float(best_epoch)]
+                ckpt_mgr.save(epoch, state)
+        if distributed:
+            dist.barrier()  # the other ranks wait for rank 0's eval and checkpoints
         if args.max_steps and step >= args.max_steps:
             break
     logger.close()
+    if distributed:
+        dist.destroy_process_group()
     return log_dir
 
 

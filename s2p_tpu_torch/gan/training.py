@@ -15,6 +15,18 @@ perceptual loss sees float32 images and float32 VGG weights.
 
 After a step, each parameter's ``.grad`` holds the gradient that step
 applied.
+
+Data parallelism: JAX averages gradients and metrics over the mesh's data
+axis with ``pmean`` inside the step. The port runs one process per card,
+so a trainer given ``dp_group`` (the mesh's data group) averages them
+explicitly: one all-reduce of one flat float32 buffer per module per
+update, after the gradient and before the optimizer step, and one of the
+stacked step metrics. Each rank trains on its part of the global batch;
+since every loss is a mean over equal-size parts, the averaged step is the
+step on the global batch. ``DistributedDataParallel`` is not used: D runs
+twice before its gradient is taken and again inside G's loss, and R1 takes
+``autograd.grad(..., create_graph=True)`` through it, which DDP's reducer
+does not support.
 """
 
 from __future__ import annotations
@@ -23,6 +35,7 @@ import dataclasses
 from typing import Any, Dict, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 from torch.func import functional_call
 
@@ -38,6 +51,7 @@ from s2p_tpu_torch.gan.losses import (
     r1_penalty,
 )
 from s2p_tpu_torch.gan.perceptual import PerceptualLoss
+from s2p_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, all_reduce_mean, shard_batch
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -70,13 +84,16 @@ def _f32(feats):
 
 class GANTrainer:
     """Owns G, D, their optimisers and the perceptual loss; ``g_step`` and
-    ``d_step`` count performed G and D updates."""
+    ``d_step`` count performed G and D updates. With ``dp_group`` (a
+    process group; None in a single process) gradients and metrics are
+    averaged over its ranks."""
 
     def __init__(self, generator: S2PGenerator, discriminator: MultiscaleDiscriminator,
                  perceptual: Optional[PerceptualLoss],
                  loss_cfg: GANLossConfig = GANLossConfig(),
                  opt_cfg: GANOptConfig = GANOptConfig(),
-                 compute_dtype: torch.dtype = torch.float32, d_every: int = 1):
+                 compute_dtype: torch.dtype = torch.float32, d_every: int = 1,
+                 dp_group: Optional[dist.ProcessGroup] = None):
         self.generator, self.discriminator, self.perceptual = generator, discriminator, perceptual
         self.loss_cfg = loss_cfg
         self.compute_dtype = compute_dtype
@@ -85,6 +102,8 @@ class GANTrainer:
         self.g_opt = _adam(generator, opt_cfg.g_lr, opt_cfg)
         self.d_opt = _adam(discriminator, opt_cfg.d_lr, opt_cfg)
         self.g_step = self.d_step = 0
+        self.dp_group = dp_group
+        self._dp_data = None  # (host dataset, this rank's staged shard) of train_many_dp
 
     @classmethod
     def create(cls, state_dim: int, image_size: int = 64, channels: int = 3,
@@ -94,7 +113,8 @@ class GANTrainer:
                loss_cfg: GANLossConfig = GANLossConfig(), use_perceptual: bool = True,
                vgg_state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                compute_dtype: torch.dtype = torch.float32, d_every: int = 1, seed: int = 0,
-               device: str | torch.device = "cuda") -> "GANTrainer":
+               device: str | torch.device = "cuda",
+               dp_group: Optional[dist.ProcessGroup] = None) -> "GANTrainer":
         """G, D and the VGG19 of the perceptual loss from seeds ``seed``,
         ``seed + 1`` and ``seed + 2``, on ``device`` (the card unless the
         caller asks otherwise)."""
@@ -104,7 +124,7 @@ class GANTrainer:
                                        **(discriminator_kwargs or {}))
         perceptual = (PerceptualLoss(vgg_state_dict, seed=seed + 2, device=device)
                       if use_perceptual else None)
-        return cls(gen, disc, perceptual, loss_cfg, opt_cfg, compute_dtype, d_every)
+        return cls(gen, disc, perceptual, loss_cfg, opt_cfg, compute_dtype, d_every, dp_group)
 
     @property
     def device(self) -> torch.device:
@@ -116,15 +136,23 @@ class GANTrainer:
         return {k: (p if grad else p.detach()).to(self.compute_dtype)
                 for k, p in module.named_parameters()}
 
-    @staticmethod
-    def _apply(opt: torch.optim.Optimizer, module: nn.Module, loss: torch.Tensor) -> None:
+    def _apply(self, opt: torch.optim.Optimizer, module: nn.Module, loss: torch.Tensor) -> None:
         """Gradient of ``loss`` over ``module``'s parameters only (zeros for
-        one it does not reach), set as their ``.grad``, then one step."""
+        one it does not reach), averaged over the data-parallel ranks, set
+        as their ``.grad``, then one step."""
         params = list(module.parameters())
         grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        self.sync_grads(grads)
         for p, g in zip(params, grads):
             p.grad = g
         opt.step()
+
+    def sync_grads(self, grads) -> None:
+        """Average ``grads`` in place over the data-parallel ranks (one flat
+        all-reduce and the copies back); nothing without a group."""
+        if self.dp_group is not None:
+            for g, mean in zip(grads, all_reduce_mean(grads, self.dp_group)):
+                g.copy_(mean)
 
     def _d_update(self, state, prev, real):
         G, D, cfg = self.generator, self.discriminator, self.loss_cfg
@@ -174,7 +202,9 @@ class GANTrainer:
     def train_step(self, batch: Mapping[str, Any]) -> Metrics:
         """One D update (every ``d_every``-th step) and one G update on a
         batch of ``prev_image``/``target_image`` (uint8 or [-1, 1] NHWC) and
-        ``state``; returns the step's metrics as 0-d device tensors."""
+        ``state``; returns the step's metrics as 0-d device tensors. Under
+        data parallelism the batch is this rank's part of the global batch,
+        and the metrics are averaged over the ranks."""
         dev, dt = self.device, self.compute_dtype
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         prev = _to_signed(batch["prev_image"]).to(dt)
@@ -187,23 +217,59 @@ class GANTrainer:
         metrics = dict(d_loss=d_loss, g_loss=g_loss, **aux)
         if self.loss_cfg.r1_gamma > 0.0:
             metrics["d_r1"] = d_r1
+        if self.dp_group is not None:
+            metrics = dict(zip(metrics, all_reduce_mean(list(metrics.values()), self.dp_group)))
         return metrics
 
     def train_many(self, data: Mapping[str, torch.Tensor], num_steps: int, batch_size: int,
-                   generator: torch.Generator) -> Metrics:
+                   generator: Optional[torch.Generator] = None,
+                   indices: Optional[Any] = None) -> Metrics:
         """``num_steps`` updates on batches drawn uniformly with replacement
         from ``data`` (device-resident uint8 frames and states, the keys of
-        a ``train_step`` batch) with ``generator`` on the data's device;
+        a ``train_step`` batch) with ``generator`` on the data's device, or
+        taken from ``indices`` ([num_steps, batch_size] rows of ``data``);
         returns the metrics averaged over the steps."""
-        n = data["state"].shape[0]
+        n, dev = data["state"].shape[0], data["state"].device
         sums: Metrics = {}
-        for _ in range(num_steps):
-            idx = torch.randint(0, n, (batch_size,), generator=generator,
-                                device=data["state"].device)
+        for step in range(num_steps):
+            idx = (torch.randint(0, n, (batch_size,), generator=generator, device=dev)
+                   if indices is None else torch.as_tensor(indices[step], device=dev))
             metrics = self.train_step({k: v.index_select(0, idx) for k, v in data.items()})
             for k, v in metrics.items():
                 sums[k] = sums[k] + v if k in sums else v
         return {k: v / num_steps for k, v in sums.items()}
+
+    def train_many_dp(self, mesh: Mesh, data: Mapping[str, Any], num_steps: int,
+                      batch_size: int, generator: Optional[torch.Generator] = None,
+                      indices: Optional[Any] = None) -> Metrics:
+        """``num_steps`` updates data-parallel over ``mesh``'s data axis, laid
+        out as the JAX package's ``train_many_dp`` lays them out.
+
+        ``data`` is the whole dataset on the host, the same on every rank.
+        Of its first n rows (trailing rows beyond a multiple of the axis
+        size d dropped), rank r stages only its contiguous shard [r·n/d,
+        (r+1)·n/d) on its device (once per ``data`` object), and each step
+        samples ``batch_size``/d rows of that shard with ``generator``, which
+        the caller seeds per (seed, rank) as JAX folds the axis index into
+        the key, or takes them from ``indices`` ([num_steps, batch_size/d]
+        rows of the shard). ``batch_size`` is the global batch. So with a
+        dataset that concatenates two envs in equal halves, on 2 ranks rank
+        0 samples only the first env's rows and rank 1 only the second's,
+        and the averaged gradient mixes them.
+
+        Returns the metrics averaged over the steps and the ranks.
+        """
+        d = mesh.shape[DATA_AXIS]
+        if batch_size % d:
+            raise ValueError(f"global batch {batch_size} does not divide over {d} data ranks")
+        if self.dp_group is not mesh.groups[DATA_AXIS]:
+            raise ValueError("the trainer's dp_group is not the mesh's data group")
+        if self._dp_data is None or self._dp_data[0] is not data:
+            n = len(data["state"]) - len(data["state"]) % d
+            shard = shard_batch(mesh, {k: v[:n] for k, v in data.items()})
+            self._dp_data = (data, {k: torch.as_tensor(v, device=self.device)
+                                    for k, v in shard.items()})
+        return self.train_many(self._dp_data[1], num_steps, batch_size // d, generator, indices)
 
     @torch.no_grad()
     def generate(self, state: torch.Tensor, prev_image: torch.Tensor) -> torch.Tensor:

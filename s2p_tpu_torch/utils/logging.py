@@ -7,7 +7,10 @@
 - per-iteration snapshots (``save_itr_params``) in the modes ``all | last |
   gap | gap_and_last | none``: pickles of trees whose tensors became numpy
   arrays, so that the JAX package reads them too;
-- ``logger``, the module-level logger the RL loops default to.
+- ``logger``, the module-level logger the RL loops default to;
+- key prefixes (``push_prefix``/``pop_prefix``), ``TerminalTablePrinter``,
+  ``set_print_tabular`` and ``save_extra_data`` (JSON or a pickle in the
+  run directory).
 """
 
 from __future__ import annotations
@@ -53,14 +56,17 @@ def _to_host(tree: Any) -> Any:
     return tree
 
 
-def format_table(rows: Iterable[tuple]) -> str:
-    rows = [(str(k), str(v)) for k, v in rows]
-    if not rows:
-        return ""
-    kw = max(len(k) for k, _ in rows)
-    vw = max(len(v) for _, v in rows)
-    sep = "-" * (kw + vw + 7)
-    return "\n".join([sep] + [f"| {k.ljust(kw)} | {v.ljust(vw)} |" for k, v in rows] + [sep])
+class TerminalTablePrinter:
+    @staticmethod
+    def format(rows: Iterable[tuple]) -> str:
+        rows = [(str(k), str(v)) for k, v in rows]
+        if not rows:
+            return ""
+        kw = max(len(k) for k, _ in rows)
+        vw = max(len(v) for _, v in rows)
+        sep = "-" * (kw + vw + 7)
+        return "\n".join([sep] + [f"| {k.ljust(kw)} | {v.ljust(vw)} |" for k, v in rows]
+                         + [sep])
 
 
 class Logger:
@@ -68,11 +74,13 @@ class Logger:
         self._log_dir: Optional[str] = None
         self._tabular: "OrderedDict[str, Any]" = OrderedDict()
         self._tabular_keys: Optional[list] = None
+        self._tabular_prefixes: list = []
         self._csv_file = None
         self._csv_writer = None
         self._text_file = None
         self._snapshot_mode = "gap_and_last"
         self._snapshot_gap = 10
+        self._print_tabular = True
 
     @property
     def log_dir(self) -> Optional[str]:
@@ -96,6 +104,9 @@ class Logger:
             raise ValueError(f"snapshot gap {gap} < 1")
         self._snapshot_gap = gap
 
+    def set_print_tabular(self, flag: bool) -> None:
+        self._print_tabular = flag
+
     def log(self, msg: str, with_timestamp: bool = True) -> None:
         if with_timestamp:
             now = datetime.datetime.now().strftime("%Y-%m-%d %H:%M:%S.%f")[:-3]
@@ -112,8 +123,16 @@ class Logger:
         with open(osp.join(self._log_dir, "variant.json"), "w") as f:
             f.write(variant_json(variant))
 
+    def push_prefix(self, prefix: str) -> None:
+        """Prepend ``prefix`` (after those pushed before it) to the keys
+        recorded until it is popped."""
+        self._tabular_prefixes.append(prefix)
+
+    def pop_prefix(self) -> None:
+        self._tabular_prefixes.pop()
+
     def record_tabular(self, key: str, value: Any) -> None:
-        self._tabular[key] = value
+        self._tabular["".join(self._tabular_prefixes) + key] = value
 
     def record_dict(self, d: Mapping[str, Any], prefix: Optional[str] = None) -> None:
         for k, v in d.items():
@@ -123,8 +142,9 @@ class Logger:
         if not self._tabular:
             return
         row = dict(self._tabular)
-        print(format_table(row.items()))
-        sys.stdout.flush()
+        if self._print_tabular:
+            print(TerminalTablePrinter.format(row.items()))
+            sys.stdout.flush()
         if self._csv_writer is None and self._csv_file is not None:
             # freeze the csv key set on the first dump so later rows stay aligned
             self._tabular_keys = list(row)
@@ -169,6 +189,21 @@ class Logger:
             pickle.dump(_to_host(params), f)
         return path
 
+    def save_extra_data(self, data: Any, file_name: str) -> str:
+        """``data`` in the run directory: as JSON (anything else as its
+        repr) when ``file_name`` ends in ``.json``, else pickled with its
+        tensors as numpy arrays. Returns the path."""
+        if self._log_dir is None:
+            raise RuntimeError("save_extra_data needs a log dir: call set_log_dir first")
+        path = osp.join(self._log_dir, file_name)
+        if file_name.endswith(".json"):
+            with open(path, "w") as f:
+                json.dump(data, f, indent=2, default=repr)
+        else:
+            with open(path, "wb") as f:
+                pickle.dump(_to_host(data), f)
+        return path
+
     def close(self) -> None:
         for f in (self._csv_file, self._text_file):
             if f is not None:
@@ -178,15 +213,19 @@ class Logger:
 
 def setup_logger(exp_name: str, variant: Optional[Mapping[str, Any]] = None,
                  base_log_dir: str = "./logs", seed: int = 0,
-                 unique_timestamp: bool = True) -> tuple[Logger, str]:
-    """A logger writing into a new run directory
+                 unique_timestamp: bool = True, snapshot_mode: str = "gap_and_last",
+                 snapshot_gap: int = 10, log: Optional[Logger] = None) -> tuple[Logger, str]:
+    """``log`` (a new logger when None) writing into a new run directory
     ``{base_log_dir}/{exp_name}/{exp_name}_{timestamp}_s{seed}`` (with
-    ``variant.json`` when a variant is given); returns (logger, run dir)."""
-    log = Logger()
+    ``variant.json`` when a variant is given), snapshotting as
+    ``snapshot_mode``/``snapshot_gap`` say; returns (logger, run dir)."""
+    log = log or Logger()
     stamp = (datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
              if unique_timestamp else "run")
     log_dir = osp.join(base_log_dir, exp_name, f"{exp_name}_{stamp}_s{seed}")
     log.set_log_dir(log_dir)
+    log.set_snapshot_mode(snapshot_mode)
+    log.set_snapshot_gap(snapshot_gap)
     if variant is not None:
         log.log_variant(variant)
         log.log(f"Variant:\n{variant_json(variant)}", with_timestamp=False)

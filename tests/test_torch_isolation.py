@@ -62,7 +62,14 @@ def test_port_imports_nothing_of_jax():
             "s2p_tpu_torch.samplers.step_collector", "s2p_tpu_torch.core.batch_rl_algorithm",
             "s2p_tpu_torch.core.online_rl_algorithm", "s2p_tpu_torch.core.video",
             "s2p_tpu_torch.data.env_replay_buffer", "s2p_tpu_torch.data.path_loaders",
-            "s2p_tpu_torch.cli.mujoco_finetune", "s2p_tpu_torch.cli.final_eval"
+            "s2p_tpu_torch.cli.mujoco_finetune", "s2p_tpu_torch.cli.final_eval",
+            "s2p_tpu_torch.parallel", "s2p_tpu_torch.parallel.mesh",
+            "s2p_tpu_torch.parallel.distributed", "s2p_tpu_torch.utils.profiling",
+            "s2p_tpu_torch.utils.launcher", "s2p_tpu_torch.utils.sweep",
+            "s2p_tpu_torch.utils.plotting", "s2p_tpu_torch.utils.pyutil",
+            "s2p_tpu_torch.utils.io", "s2p_tpu_torch.utils.exploration",
+            "s2p_tpu_torch.testing.debug_util", "s2p_tpu_torch.testing.gan_dp_worker",
+            "s2p_tpu_torch.testing.tp_worker"
             } <= set(report["modules"])
 
 

@@ -1,8 +1,9 @@
 """The MAT-norm kernels' launch plan (s2p_tpu_torch.gan.cuda_kernels.
 mat_norm_plan), which runs on the host and so is tested here on the CPU: at
 every norm shape of the main paths (the 64px/ngf=64 generator at batch 256
-serving, the 100px/ngf=64 one at batch 16 training and at batch 256 in the
-image bridge), in bf16 and f32, forward and backward (the bridge runs only
+serving and at 4 in the tensor-parallel forward, the 100px/ngf=64 one at
+batch 16 training, at 8 and 2 a rank in data-parallel training and at
+batch 256 in the image bridge), in bf16 and f32, forward and backward (the bridge runs only
 the forward; its backward plans are held to the same rule); the streaming
 path at 256²; and the choice of the scalar path from channel counts and
 alignment. The kernels themselves are held to their plain versions on the
@@ -34,7 +35,9 @@ def norm_shapes(image_size: int, ngf: int = 64) -> list:
 
 MAIN_PATHS = [(256, 64, h, c) for h, c in norm_shapes(64)] + \
              [(16, 100, h, c) for h, c in norm_shapes(100)] + \
-             [(256, 100, h, c) for h, c in norm_shapes(100)]
+             [(256, 100, h, c) for h, c in norm_shapes(100)] + \
+             [(b, 100, h, c) for b in (8, 2) for h, c in norm_shapes(100)] + \
+             [(4, 64, h, c) for h, c in norm_shapes(64)]
 
 
 def test_main_path_shapes_are_the_generators():
@@ -64,9 +67,12 @@ def test_plan_at_main_path_shape(batch, image_size, H, C, dtype, direction):
     assert plan.smem == (0 if small else slice_bytes) + ck.SCRATCH_BYTES_PER_CHANNEL * plan.tile_c
     assert plan.smem <= SMEM_PER_CTA
     assert C % plan.tile_c == 0 and plan.tile_c * dtype.itemsize // 16 in (2, 4, 8)
-    if H in (50, 100):  # at batch 16 (image, tile) groups alone would give 32-64 CTAs;
-        # at batch 256 they give enough, but a whole 50² or 100² slice does not fit
+    if H in (50, 100) and batch >= 16:  # at batch 16 (image, tile) groups alone would give
+        # 32-64 CTAs; at batch 256 they give enough, but a whole 50² or 100² slice does not fit
         assert plan.grid >= 256 and plan.cluster > 1
+    if hw >= ck.SPLIT_MIN_HW:  # k is raised until the aim, the largest k or the least pixels
+        assert (plan.grid >= ck.TARGET_CTAS or plan.cluster == ck.CLUSTER_SIZES[-1]
+                or -(-hw // (2 * plan.cluster)) < ck.MIN_SPLIT_PIXELS)
     if hw < ck.SPLIT_MIN_HW:  # small images: no cluster unless the slice needs one to fit
         assert plan.cluster == 1 or arrays * -(-hw // (plan.cluster // 2)) * plan.tile_c \
             * dtype.itemsize > ck.RESIDENT_BYTES
