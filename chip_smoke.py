@@ -205,6 +205,39 @@ shapes at batch 4 (20c, f32).
     256): each rank's forward within 2e-5 of the replicated forward on the
     card in f32 (TF32 off), at least one layer sharded, 13 MAT-norm
     launches per rank. A rank that fails or times out fails the run.
+21. data-parallel RL steps, on phase 15's IQL + SLAC and phase 17's CQL +
+    SLAC configurations (batch 128, joint latent step at batch 32) and
+    phase 14's ELBO step (batch 32).
+    21a (a main path): world 1 over NCCL on phase 15's buffer (1,000 real +
+    1,000 generated rows); per configuration one f32 DP step (TF32 off,
+    cuDNN deterministic) bit-equal to the single-process step on the same
+    draws (metrics, every gradient and parameter), then 15 timed DP steps
+    (``train_many_dp``, or ``update_latent_many`` in a group) in turns with
+    15 of a single-process copy, cuDNN TF32 on (counts reset just before
+    each DP window and read just after it: no MAT-norm launch); the
+    networks' parameter counts, the sync alone (the gradient and metric
+    all-reduces of one step) in device ms and launches beside its f32 bytes,
+    and a profile of one DP step.
+    21b (a main path): 2 gloo ranks on this card, on 1,000 seeded real
+    rows; per configuration one f32 step on each rank's rows of a global
+    batch of 8 rows and 8 windows held to the card's single-process f32 step
+    on the whole batch (phase 7's floors; the latent model's leaky-ReLU
+    slopes replayed from that step, the flips counted), then a warm-up and
+    3 timed steps at the shipped batches; after every step the ranks' state
+    checksums (all-gathered) must agree. The rate is gloo through the host: a correctness check, not a
+    multi-card number.
+    21c (a main path): the state IQL and CQL loops of ``mujoco_finetune``'s
+    state branch (256 x 2, batch 128) on 20,000 seeded cheetah transitions,
+    world 1 over NCCL: ``train_many_dp`` bit-equal to ``train_many`` on the
+    same rows over 5 steps (TF32 off), then 50 timed steps of each in turns.
+22. the collection loop (a main path): ``collect_dataset.collect`` (SAC 256
+    x 2, batch 256, one train step per env step after 1,000 random steps)
+    for 2,000 steps of a stub of cheetah-run (state 17, action 6,
+    ``physics.data.qpos``/``qvel`` 9 + 9, 250-step horizon) on the card:
+    the JAX script's keys, dtypes and shapes, finite values, 8 timeouts;
+    env steps/sec of the random and of the training phase from the stub's
+    step stamps; no MAT-norm launch (counts reset around it); a profile of
+    one SAC step (launches, idle share).
 
 ``--ab DIR`` runs phases 1 and 2, then times the MAT-norm kernels against
 those of the checkout in DIR in turns, then the two main paths end to end
@@ -218,7 +251,8 @@ The last two lines are the per-kernel JSON record and
 torch.profiler summary of one throughput rollout, of one bf16 train step,
 of four bridge batches, of 20 ensemble steps, of one ``gb_int8`` rollout,
 of one ELBO step, of one IQL + SLAC step, of one CQL + SLAC step, of one
-LPIPS batch, of one FID extraction batch and of one acting step to DIR.
+LPIPS batch, of one FID extraction batch, of one acting step and of one
+SAC step of the collection loop to DIR.
 """
 
 from __future__ import annotations
@@ -331,6 +365,18 @@ WALKER_STATE_DIM, DP_ROWS, DP_STEPS, DP_WORLD = 24, 256, 30, 2
 DP_PARITY_BATCH = 4
 TP_MIN_FEATURES, TP_BATCH = 256, 4
 TP_TOL = 2e-5  # tests/test_parallel.py::test_model_shard_params_tensor_parallel_generator
+# data-parallel RL (phase 21): phase 15's IQL + SLAC, phase 17's CQL + SLAC and
+# phase 14's ELBO step; DP_RL_STEPS timed steps a window at world 1 over NCCL
+# (21a); 2 gloo ranks on this card (21b) on DP_RL_ROWS seeded real rows, their
+# f32 step at a global batch of DP_RL_PARITY_BATCH rows and windows (4 a rank:
+# fewer pre-activations within f32 noise of a ReLU's kink than at 128), then
+# DP_RL_GLOO_STEPS timed steps a configuration; the state loops (21c) of
+# mujoco_finetune's state branch (256 x 2, batch 128) on STATE_ROWS seeded
+# cheetah transitions
+DP_RL_STEPS, DP_RL_GLOO_STEPS, DP_RL_PARITY_BATCH, DP_RL_ROWS = 15, 3, 8, 1000
+STATE_HIDDEN, STATE_ROWS, STATE_STEPS, STATE_PARITY_STEPS = (256, 256), 20_000, 50, 5
+# the collection loop (phase 22): collect_dataset.py's SAC on a stub of cheetah
+COLLECT_STEPS, COLLECT_RANDOM = 2000, 1000
 
 
 def fail(msg: str) -> None:
@@ -1555,11 +1601,11 @@ def slac_dataset(n_episodes: int, episode_len: int, seed: int) -> dict:
                 rewards=rs.randn(n).astype(np.float32), timeouts=timeouts)
 
 
-def make_slac(device, batch_size_latent: int, buffer_size: int):
+def make_slac(device, batch_size_latent: int, buffer_size: int, dp_group=None):
     from s2p_tpu_torch.slac import SlacAlgorithm
 
     return SlacAlgorithm(ACT_DIM, buffer_size=buffer_size, batch_size_latent=batch_size_latent,
-                         seed=0, device=device, **SLAC_KW)
+                         seed=0, device=device, dp_group=dp_group, **SLAC_KW)
 
 
 def slac_rl_nets(slac, dtype=None):
@@ -1575,19 +1621,33 @@ def slac_rl_nets(slac, dtype=None):
 
 
 def make_iql(slac, dtype=None):
-    """The shipped IQL trainer over ``slac``."""
+    """The shipped IQL trainer over ``slac`` (in its data-parallel group)."""
     from s2p_tpu_torch.rl import IQLTrainer
 
     return IQLTrainer(*slac_rl_nets(slac, dtype), slac_algo=slac, seed=0, device=slac.device,
-                      **IQL_KW)
+                      dp_group=slac.dp_group, **IQL_KW)
 
 
 def make_cql(slac, dtype=None, **kw):
-    """The shipped CQL trainer over ``slac`` (``kw`` over ``CQL_KW``)."""
+    """The shipped CQL trainer over ``slac`` (``kw`` over ``CQL_KW``; in its
+    data-parallel group)."""
     from s2p_tpu_torch.rl import CQLTrainer
 
     return CQLTrainer(*slac_rl_nets(slac, dtype), slac_algo=slac, seed=0, device=slac.device,
-                      **dict(CQL_KW, **kw))
+                      dp_group=slac.dp_group, **dict(CQL_KW, **kw))
+
+
+def fill_rl_buffer(slac, pretrain: dict, generated: dict, generated_frames) -> tuple:
+    """Phase 14's latent, and one buffer as ``run_{iql,cql}_image.sh`` fill
+    it: phase 14's first real rows, then phase 11's augmented rows with the
+    frames its bridge rendered (the aleatoric penalty); returns the slots
+    (real, generated)."""
+    slac.latent.load_state_dict(pretrain["latent"])
+    n_real = slac.buffer.ingest_real(pretrain["real"])
+    slac.buffer.mark_real()
+    n_gen = slac.buffer.ingest_generated(generated, UNCERTAINTY_TYPE, UNCERTAINTY_LAMBDA,
+                                         generated_frames=generated_frames)
+    return n_real, n_gen
 
 
 def _f64(named) -> dict:
@@ -1743,11 +1803,7 @@ def phase_slac_rl(ck, card: str, name: str, make_trainer, steps: int, pretrain: 
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults, as phase 14
     torch.backends.cuda.matmul.allow_tf32 = False
     slac = make_slac("cuda", SLAC_BATCH, int(1.05e5))  # the finetune CLI's buffer
-    slac.latent.load_state_dict(pretrain["latent"])
-    n_real = slac.buffer.ingest_real(pretrain["real"])
-    slac.buffer.mark_real()
-    n_gen = slac.buffer.ingest_generated(generated, UNCERTAINTY_TYPE, UNCERTAINTY_LAMBDA,
-                                         generated_frames=generated_frames)
+    n_real, n_gen = fill_rl_buffer(slac, pretrain, generated, generated_frames)
     print(f"{name} buffer: {n_real} real windows ({SLAC_REAL_ROWS} rows) + {n_gen} generated "
           f"({SLAC_GEN_ROWS} rows of phase 11's augmented dataset, frames from its bridge, "
           f"{UNCERTAINTY_TYPE} penalty lambda {UNCERTAINTY_LAMBDA}), one buffer")
@@ -2260,7 +2316,7 @@ def phase_dp_nccl(ck, card: str, single_sps: float) -> dict:
     import torch
     import torch.distributed as dist
 
-    from s2p_tpu_torch.parallel import MeshSpec, make_mesh, shard_batch
+    from s2p_tpu_torch.parallel import MeshSpec, make_mesh, shard_batch, sync_grads
     from s2p_tpu_torch.parallel.distributed import free_port, initialize_distributed
 
     ds = multi_env_pairs()
@@ -2363,7 +2419,7 @@ def phase_dp_nccl(ck, card: str, single_sps: float) -> dict:
             fail(f"dp nccl launched the MAT-norm kernels {launches}, expected {expected}")
         g_grads = [p.grad for p in trainer.generator.parameters()]
         d_grads = [p.grad for p in trainer.discriminator.parameters()]
-        sync = lambda: (trainer.sync_grads(d_grads), trainer.sync_grads(g_grads))
+        sync = lambda: (sync_grads(d_grads, group), sync_grads(g_grads, group))
         stream_ms = time_ms(sync)
         prof = profile_device(sync, None, "dp_sync")
         sync_ms = prof["device_busy_ms"]
@@ -2610,6 +2666,581 @@ def _phase_tp(gen_cpu, card: str, out_dir: str) -> int:
     return total
 
 
+# -- phase 21: data-parallel RL steps ------------------------------------------
+
+DP_RL_KINDS = ("iql", "cql", "elbo")
+DP_RL_NAMES = dict(iql="IQL + SLAC", cql="CQL + SLAC", elbo="SLAC ELBO")
+
+
+def rl_draws(kind: str, batch: int, latent_batch: int, n_slots: int, seed: int) -> dict:
+    """One step's draws (CPU f32) for ``batch`` RL rows and ``latent_batch``
+    ELBO windows: the batch's slots, the posterior noise (with CQL's policy
+    draws), and the ELBO step's slots and noise. Every draw splits over
+    ranks by contiguous rows (CQL's tiled draws hold num_random rows per
+    batch row in order)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    S, N, A = SLAC_KW["num_sequences"], CQL_KW["num_random"], ACT_DIM
+
+    def noise(b):
+        return [torch.randn(b, d, generator=g) for _ in range(S + 1)
+                for d in (SLAC_KW["z1_dim"], SLAC_KW["z2_dim"])]
+
+    def slots(b):
+        return torch.randint(0, n_slots, (b,), generator=g)
+
+    d = dict(slots=slots(batch), latent=(slots(latent_batch), noise(latent_batch)))
+    if kind == "iql":
+        d["draws"] = noise(batch)
+    elif kind == "cql":
+        randn = lambda n: torch.randn(n, A, generator=g)  # noqa: E731
+        d["draws"] = dict(posterior=noise(batch), pi=randn(batch), next=randn(batch),
+                          random=torch.rand(batch * N, A, generator=g) * 2 - 1,
+                          pi_tiled=randn(batch * N), next_tiled=randn(batch * N))
+    return d
+
+
+def rl_step(kind: str, tr, slac, d: dict) -> dict:
+    """One step of ``kind`` on the given draws ``d`` (``rl_draws``, or a
+    rank's rows of them): an IQL or CQL ``train()`` on the windows of
+    ``d["slots"]`` with its joint ELBO step, or the ELBO step alone."""
+    from s2p_tpu_torch.data.replay import window_batch
+
+    dev = slac.device
+    latent = (d["latent"][0].to(dev), [t.to(dev) for t in d["latent"][1]])
+    if kind == "elbo":
+        return slac.update_latent(idx=latent[0], noise=latent[1])
+    batch = window_batch(*slac.buffer.gather(d["slots"]))
+    if kind == "iql":
+        return tr.train(batch, prepare_noise=[t.to(dev) for t in d["draws"]],
+                        latent_draws=latent)
+    return tr.train(batch, draws=d["draws"], latent_draws=latent)
+
+
+def rl_modules(kind: str, tr, slac) -> dict:
+    nets = {} if kind == "elbo" else dict(policy=tr.policy, critic=tr.critic)
+    nets["latent"] = slac.latent
+    return nets
+
+
+def rl_record(kind: str, tr, slac, metrics) -> dict:
+    """The metrics, gradients and parameters after a step (on the CPU)."""
+    nets = rl_modules(kind, tr, slac)
+    grads = {m: {k: p.grad.detach().cpu() for k, p in net.named_parameters()
+                 if p.grad is not None} for m, net in nets.items()}
+    if kind == "cql":
+        grads["temperatures"] = {k: getattr(tr, k).grad.detach().cpu().reshape(1)
+                                 for k in ("log_alpha", "log_alpha_prime")
+                                 if getattr(tr, k).grad is not None}
+    return dict(metrics={k: v.item() for k, v in metrics.items()}, grads=grads,
+                params={m: {k: v.detach().cpu() for k, v in net.state_dict().items()}
+                        for m, net in nets.items()})
+
+
+def rl_state(kind: str, tr, slac) -> list:
+    """Everything a step changes (for ``state_checksum``)."""
+    objs = [slac.latent, slac.opt]
+    if kind != "elbo":
+        objs += [tr.policy, tr.critic, tr.target_q, tr.policy_opt, tr.critic_opt]
+    if kind == "cql":
+        objs += [tr.log_alpha, tr.alpha_opt, tr.log_alpha_prime, tr.alpha_prime_opt]
+    return objs
+
+
+def rl_member(kind: str, group, latent: dict, buffer):
+    """(trainer or None, SLAC) of ``kind`` over ``buffer`` from ``latent``,
+    in data-parallel ``group`` (None: single-process)."""
+    slac = make_slac("cuda", SLAC_BATCH, 8, dp_group=group)
+    slac.latent.load_state_dict(latent)
+    slac.buffer = buffer
+    tr = None if kind == "elbo" else (make_iql if kind == "iql" else make_cql)(slac)
+    return tr, slac
+
+
+def rl_runner(kind: str, tr, slac, mesh=None):
+    """``run(n)``: n steps drawn on the device (``train_many``, or
+    ``train_many_dp`` over ``mesh``, at batch IQL_BATCH with the joint ELBO
+    step; or ``update_latent_many``), the last step's metrics."""
+    from s2p_tpu_torch.rl import train_many_dp
+
+    if kind == "elbo":
+        return slac.update_latent_many
+    if mesh is None:
+        return lambda n: tr.train_many(n, IQL_BATCH)
+    return lambda n: train_many_dp(tr, mesh, n, IQL_BATCH)
+
+
+def rl_sync(kind: str, tr, slac, metrics: dict, group):
+    """The collectives one DP step of ``kind`` runs (on the gradients its
+    last step left): ``(sync(), f32 bytes reduced, all-reduces)``. IQL: the
+    critic's and policy's gradients, the metrics; CQL: α's, the policy's,
+    the critic's with α′'s, the metrics; then the ELBO's gradients and
+    losses."""
+    from s2p_tpu_torch.parallel import all_reduce_mean, mean_metrics, sync_grads
+
+    def grads(*objs):
+        ps = [p for o in objs for p in (o.parameters() if hasattr(o, "parameters") else [o])]
+        return [p.grad for p in ps if p.grad is not None]
+
+    lists = []
+    if kind == "iql":
+        lists.append(grads(tr.critic, tr.policy))
+    elif kind == "cql":
+        lists += [grads(tr.log_alpha), grads(tr.policy),
+                  grads(tr.critic, tr.log_alpha_prime)]
+    lists.append(grads(slac.latent))
+    losses = [metrics[k] for k in ("loss_kld", "loss_image", "loss_reward")]
+    rl_metrics = {k: v for k, v in metrics.items() if not k.startswith("loss_")}
+
+    def sync():
+        for lst in lists:
+            sync_grads(lst, group)
+        if rl_metrics:
+            mean_metrics(rl_metrics, group)
+        all_reduce_mean(losses, group)
+
+    n_bytes = 4 * (sum(g.numel() for lst in lists for g in lst) + len(metrics))
+    return sync, n_bytes, len(lists) + 1 + bool(rl_metrics)
+
+
+def hold_bitwise(label: str, got: dict, ref: dict) -> None:
+    """A data-parallel step's record equal, bit for bit, to the
+    single-process one: metrics, gradients and parameters."""
+    import torch
+
+    if got["metrics"] != ref["metrics"]:
+        fail(f"{label}: metrics {got['metrics']} differ from {ref['metrics']}")
+    for part in ("grads", "params"):
+        for mod, tensors in ref[part].items():
+            for k, v in tensors.items():
+                if not torch.equal(got[part][mod][k], v):
+                    fail(f"{label}: {part} {mod}.{k} differ")
+    n = sum(len(t) for part in ("grads", "params") for t in ref[part].values())
+    print(f"{label}: metrics and {n} gradient and parameter tensors bit-equal")
+
+
+def rl_param_counts(kind: str, tr, slac) -> dict:
+    return {m: sum(p.numel() for p in net.parameters())
+            for m, net in rl_modules(kind, tr, slac).items()}
+
+
+def phase_dp_rl_nccl(ck, card: str, pretrain: dict, generated: dict,
+                     generated_frames) -> dict:
+    """Phases 21a and 21c: data-parallel RL at world 1 over NCCL (a TCP
+    store on 127.0.0.1, this card). 21a: phase 15's IQL + SLAC, phase 17's
+    CQL + SLAC and phase 14's ELBO step on phase 15's buffer: one f32 DP step
+    (TF32 off, cuDNN deterministic) bit-equal to the single-process step on
+    the same draws; DP_RL_STEPS timed DP steps (``train_many_dp``) in turns
+    with as many single-process ones (cuDNN TF32 on, as phases 14-17); the
+    sync alone in device ms and launches; a profile of one DP step. 21c:
+    ``state_loops``. Returns the MAT-norm launches of the DP windows."""
+    import torch
+    import torch.distributed as dist
+
+    from s2p_tpu_torch.parallel import MeshSpec, make_mesh
+    from s2p_tpu_torch.parallel.distributed import free_port, initialize_distributed
+
+    filler = make_slac("cuda", SLAC_BATCH, 4000)
+    n_real, n_gen = fill_rl_buffer(filler, pretrain, generated, generated_frames)
+    buffer, latent = filler.buffer, pretrain["latent"]
+    print(f"dp rl buffer: {n_real} real + {n_gen} generated windows (phase 15's)")
+    initialize_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, backend="nccl",
+                           device=torch.device("cuda", 0))
+    launches = dict(fwd=0, bwd=0)
+    out = {}
+    try:
+        mesh = make_mesh(MeshSpec(data=1))
+        group = mesh.groups["data"]
+        for i, kind in enumerate(DP_RL_KINDS):
+            name = DP_RL_NAMES[kind]
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.deterministic = True
+            d = rl_draws(kind, IQL_BATCH, SLAC_BATCH, len(buffer), seed=110 + i)
+            records = []
+            for g in (None, group):
+                tr, slac = rl_member(kind, g, latent, buffer)
+                records.append(rl_record(kind, tr, slac, rl_step(kind, tr, slac, d)))
+            hold_bitwise(f"dp rl nccl world 1 {name}, one f32 step", records[1], records[0])
+            torch.backends.cudnn.deterministic = False
+
+            torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, as phases 14-17
+            single, dp = rl_member(kind, None, latent, buffer), rl_member(kind, group, latent,
+                                                                          buffer)
+            runs = dict(single=rl_runner(kind, *single), dp=rl_runner(kind, *dp, mesh))
+            for run in runs.values():  # cuDNN's first calls
+                run(2)
+            seconds, metrics = dict(single=0.0, dp=0.0), []
+            for who in ("single", "dp", "dp", "single"):
+                ck.fused_mat_norm.launches = ck.fused_mat_norm_bwd.launches = 0
+                with HostWindow() as window:
+                    metrics.append(runs[who](DP_RL_STEPS))
+                seconds[who] += window.wall
+                if who == "dp":
+                    launches["fwd"] += ck.fused_mat_norm.launches
+                    launches["bwd"] += ck.fused_mat_norm_bwd.launches
+                print(f"dp rl nccl {name} window {who}: {DP_RL_STEPS / window.wall:.2f} "
+                      f"steps/sec; host: {window}")
+            if not all(torch.isfinite(v) for m in metrics for v in m.values()):
+                fail(f"dp rl nccl {name}: non-finite metrics")
+            sps, single_sps = (2 * DP_RL_STEPS / seconds[w] for w in ("dp", "single"))
+            counts = rl_param_counts(kind, *dp)
+            sync, n_bytes, n_reduces = rl_sync(kind, *dp, metrics[-2], group)
+            stream_ms = time_ms(sync)
+            prof = profile_device(sync, None, f"dp_{kind}_sync")
+            step = profile_device(lambda: runs["dp"](1), None, f"dp_{kind}_step")
+            print(f"dp rl nccl world 1 {name} (f32, cuDNN TF32; batch "
+                  f"{IQL_BATCH if kind != 'elbo' else SLAC_BATCH}, latent batch {SLAC_BATCH}): "
+                  f"{sps:.2f} DP steps/sec, the single-process trainer in turns {single_sps:.2f}"
+                  f", DP / single {sps / single_sps:.3f}; parameters {counts} "
+                  f"({sum(counts.values()) / 1e6:.3f}M); the sync ({n_reduces} all-reduces, "
+                  f"{n_bytes / 1e6:.2f} MB of f32): {prof['device_busy_ms']:.4f} ms of device "
+                  f"time, {prof['launches']} launches, {stream_ms:.4f} ms between CUDA events; "
+                  f"one DP step {step['device_busy_ms']:.3f} ms of device time (sync "
+                  f"{100 * prof['device_busy_ms'] / step['device_busy_ms']:.2f}%), "
+                  f"{step['launches']} launches, idle share {step['device_idle_share']:.3f} "
+                  f"on {card}")
+            out[kind] = dict(sps=sps, single_sps=single_sps, sync_ms=prof["device_busy_ms"],
+                             sync_launches=prof["launches"], sync_bytes=n_bytes,
+                             step_launches=step["launches"], idle=step["device_idle_share"])
+        out["state"] = state_loops(ck, card, mesh, launches)
+    finally:
+        dist.destroy_process_group()
+    if launches["fwd"] or launches["bwd"]:
+        fail(f"dp rl nccl launched the MAT-norm kernels: {launches}")
+    out["launches"] = launches
+    return out
+
+
+def state_rl_trainer(algo: str, group):
+    """``mujoco_finetune``'s state branch: IQL or CQL over 256 x 2 networks
+    on cheetah's observations."""
+    from s2p_tpu_torch.rl import CQLTrainer, CriticSLAC, IQLTrainer, TanhGaussianPolicy
+
+    policy = TanhGaussianPolicy(STATE_DIM, STATE_HIDDEN, ACT_DIM, seed=0)
+    critic = CriticSLAC(STATE_DIM, ACT_DIM, STATE_HIDDEN, seed=1)
+    common = dict(discount=0.99, policy_lr=1e-4, qf_lr=3e-4, seed=0, device="cuda",
+                  dp_group=group)
+    if algo == "iql":
+        return IQLTrainer(policy, critic, beta=0.1, quantile=0.7, clip_score=100,
+                          soft_target_tau=0.005, target_update_period=2, **common)
+    return CQLTrainer(policy, critic, soft_target_tau=5e-3, policy_eval_start=40_000,
+                      min_q_weight=5.0, with_lagrange=False, lagrange_thresh=-1.0, **common)
+
+
+def state_loops(ck, card: str, mesh, launches: dict) -> dict:
+    """Phase 21c: ``train_many_dp`` of the state IQL and CQL loops at world 1
+    over NCCL against ``train_many`` on the same rows (STATE_PARITY_STEPS
+    steps, bit-equal: metrics and every state tensor), then STATE_STEPS
+    timed steps of each in turns, on STATE_ROWS seeded cheetah transitions
+    at batch IQL_BATCH."""
+    import numpy as np
+    import torch
+
+    from s2p_tpu_torch.data.replay import SimpleReplayBuffer
+    from s2p_tpu_torch.parallel import state_checksum
+    from s2p_tpu_torch.rl import train_many_dp
+    from s2p_tpu_torch.rl.scan_utils import train_many
+
+    rs = np.random.RandomState(81)
+    buf = SimpleReplayBuffer(STATE_ROWS, STATE_DIM, ACT_DIM, device="cuda")
+    for o, a, r, d, no in zip(rs.randn(STATE_ROWS, STATE_DIM), rs.uniform(-1, 1, (STATE_ROWS,
+                                                                                   ACT_DIM)),
+                              rs.randn(STATE_ROWS), np.zeros(STATE_ROWS),
+                              rs.randn(STATE_ROWS, STATE_DIM)):
+        buf.add_sample(o, a, r, d, no)
+    group = mesh.groups["data"]
+    out = {}
+    for algo in ("iql", "cql"):
+        idx = rs.randint(0, STATE_ROWS, (STATE_PARITY_STEPS, IQL_BATCH))
+        pair = [state_rl_trainer(algo, g) for g in (None, group)]
+        ref = train_many(pair[0], STATE_PARITY_STEPS, IQL_BATCH, buf, indices=idx)
+        got = train_many_dp(pair[1], mesh, STATE_PARITY_STEPS, IQL_BATCH, buf, indices=idx)
+        objs = [[t.policy, t.critic, t.target_q, t.policy_opt, t.critic_opt]
+                + ([t.log_alpha, t.alpha_opt] if algo == "cql" else []) for t in pair]
+        same = ({k: v.item() for k, v in got.items()} == {k: v.item() for k, v in ref.items()}
+                and state_checksum(*objs[0]) == state_checksum(*objs[1]))
+        print(f"dp rl nccl state {algo}: train_many_dp and train_many, {STATE_PARITY_STEPS} "
+              f"steps on the same rows: {'bit-equal' if same else 'DIFFER'}")
+        if not same:
+            fail(f"dp rl nccl state {algo}: train_many_dp differs from train_many")
+        pair = [state_rl_trainer(algo, g) for g in (None, group)]
+        runs = dict(single=lambda n, t=pair[0]: train_many(t, n, IQL_BATCH, buf),
+                    dp=lambda n, t=pair[1]: train_many_dp(t, mesh, n, IQL_BATCH, buf))
+        for run in runs.values():
+            run(2)
+        seconds = dict(single=0.0, dp=0.0)
+        for who in ("single", "dp", "dp", "single"):
+            ck.fused_mat_norm.launches = ck.fused_mat_norm_bwd.launches = 0
+            with HostWindow() as window:
+                m = runs[who](STATE_STEPS)
+            seconds[who] += window.wall
+            if who == "dp":
+                launches["fwd"] += ck.fused_mat_norm.launches
+                launches["bwd"] += ck.fused_mat_norm_bwd.launches
+            if not all(torch.isfinite(v) for v in m.values()):
+                fail(f"dp rl nccl state {algo}: non-finite metrics")
+        sps, single_sps = (2 * STATE_STEPS / seconds[w] for w in ("dp", "single"))
+        print(f"dp rl nccl world 1 state {algo} (256 x 2, batch {IQL_BATCH}, {STATE_ROWS} rows):"
+              f" {sps:.2f} DP steps/sec, the single-process loop in turns {single_sps:.2f}, "
+              f"DP / single {sps / single_sps:.3f} on {card}")
+        out[algo] = dict(sps=sps, single_sps=single_sps)
+    return out
+
+
+def gloo_rl_buffer(latent: dict):
+    """The SLAC buffer of phase 21b: DP_RL_ROWS seeded real 100px rows."""
+    slac = make_slac("cuda", SLAC_BATCH, 4000)
+    slac.buffer.ingest_real(slac_dataset(DP_RL_ROWS // 1000, 1000, seed=91))
+    return slac.buffer
+
+
+def dp_rl_gloo_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
+    """One rank of phase 21b (gloo, every rank on this card): per
+    configuration, one f32 step (TF32 off) on its rows of the global parity
+    draws, the latent model's leaky-ReLU slopes of its rows of the card's
+    single-process step replayed (rank 0 saves its record), then one warm-up
+    and DP_RL_GLOO_STEPS timed ``train_many_dp`` (or ELBO) steps at the
+    shipped batches with cuDNN TF32; the ranks' state checksums must agree
+    after every step."""
+    import torch
+    import torch.distributed as dist
+
+    from s2p_tpu_torch.gan import cuda_kernels as ck
+    from s2p_tpu_torch.parallel import MeshSpec, make_mesh, shard_batch, state_checksum
+    from s2p_tpu_torch.parallel.distributed import initialize_distributed
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed(init_method, world, rank, backend="gloo")
+    mesh = make_mesh(MeshSpec(data=world))
+    spec = torch.load(os.path.join(out_dir, "spec.pt"), weights_only=False)
+    buffer = gloo_rl_buffer(spec["latent"])
+    report = dict(rank=rank, steps={})
+    for kind in DP_RL_KINDS:
+        torch.backends.cudnn.allow_tf32 = False
+        tr, slac = rl_member(kind, mesh.groups["data"], spec["latent"], buffer)
+        run = rl_runner(kind, tr, slac, mesh)
+        slopes = SlopeMasks()
+        slopes.masks = torch.load(os.path.join(out_dir, f"slopes_{kind}{rank}.pt"))
+
+        def f32_step():
+            with slopes.replay():
+                return rl_step(kind, tr, slac, shard_batch(mesh, spec["draws"][kind]))
+
+        steps = [("f32 parity", f32_step), ("warm-up", lambda: run(1))]
+        steps += [("timed", lambda: run(1))] * DP_RL_GLOO_STEPS
+        rows = []
+        for i, (name, fn) in enumerate(steps):
+            if i == 1:
+                torch.backends.cudnn.allow_tf32 = True
+            ck.fused_mat_norm.launches = ck.fused_mat_norm_bwd.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = fn()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            sums = [None] * world
+            dist.all_gather_object(sums, state_checksum(*rl_state(kind, tr, slac)))
+            if i == 0 and rank == 0:
+                torch.save(rl_record(kind, tr, slac, metrics),
+                           os.path.join(out_dir, f"{kind}.pt"))
+            if len(set(sums)) != 1:
+                raise RuntimeError(f"rank {rank}: {kind} state checksums differ after step "
+                                   f"{i + 1}: {sums}")
+            rows.append(dict(name=name, seconds=seconds, checksum=sums[0],
+                             launches=[ck.fused_mat_norm.launches,
+                                       ck.fused_mat_norm_bwd.launches]))
+        report["steps"][kind] = rows
+        report.setdefault("flips", {})[kind] = slopes.flips
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+
+
+def phase_dp_rl_gloo(card: str, latent: dict) -> dict:
+    """Phase 21b: DP_WORLD gloo ranks on this one card (spawned), on phase
+    21a's three configurations over DP_RL_ROWS seeded real rows: each rank's
+    f32 step on its rows of a global batch of DP_RL_PARITY_BATCH rows and
+    windows, held to the card's single-process f32 step on the whole batch
+    (phase 7's floors), with the latent model's leaky-ReLU slopes of the
+    single-process step replayed in the ranks (``SlopeMasks``: a
+    pre-activation within f32 noise of zero takes the other slope at
+    another batch size, and one such flip in the decoder moved a weight
+    gradient by 2e-4 of the largest; the flips are counted); every step's
+    state bit-identical across the ranks; the rate: gloo through the host
+    on one card, a correctness check and not a multi-card number."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_rl_", dir="build") as out_dir:
+        return _phase_dp_rl_gloo(card, latent, out_dir)
+
+
+def _phase_dp_rl_gloo(card: str, latent: dict, out_dir: str) -> dict:
+    import torch
+
+    from s2p_tpu_torch.parallel.distributed import spawn_ranks
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    buffer = gloo_rl_buffer(latent)
+    draws, single = {}, {}
+    for i, kind in enumerate(DP_RL_KINDS):
+        draws[kind] = rl_draws(kind, DP_RL_PARITY_BATCH, DP_RL_PARITY_BATCH, len(buffer),
+                               seed=120 + i)
+        tr, slac = rl_member(kind, None, latent, buffer)
+        masks = SlopeMasks()
+        with masks.record():
+            single[kind] = rl_record(kind, tr, slac, rl_step(kind, tr, slac, draws[kind]))
+        for r in range(DP_WORLD):
+            torch.save(masks.shard(r, DP_WORLD).masks,
+                       os.path.join(out_dir, f"slopes_{kind}{r}.pt"))
+    del buffer, tr, slac
+    torch.save(dict(latent=latent, draws=draws), os.path.join(out_dir, "spec.pt"))
+    try:
+        spawn_ranks(dp_rl_gloo_rank, DP_WORLD, (out_dir,), timeout=600)
+    except RuntimeError as err:
+        fail(f"dp rl gloo: {err}")
+    reports = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    out = dict(launches=[0, 0])
+    for kind in DP_RL_KINDS:
+        name = DP_RL_NAMES[kind]
+        got = torch.load(os.path.join(out_dir, f"{kind}.pt"), weights_only=False)
+        hold_to_single(f"dp rl gloo {name}: the f32 step of {DP_WORLD} ranks (global batch "
+                       f"{DP_RL_PARITY_BATCH}) against the card's single-process step", got,
+                       single[kind])
+        timed = [s for s in reports[0]["steps"][kind] if s["name"] == "timed"]
+        seconds = sum(s["seconds"] for s in timed)
+        for rep in reports:
+            for s in rep["steps"][kind]:
+                out["launches"] = [a + b for a, b in zip(out["launches"], s["launches"])]
+        print(f"dp rl gloo {name}: the latent model's leaky-ReLU slopes replayed from the "
+              f"single-process step; entries whose own sign differs, by rank: "
+              f"{[rep['flips'][kind] for rep in reports]}")
+        print(f"dp rl gloo {name} ({DP_WORLD} ranks through the host on one card; gloo's host "
+              f"staging, not a multi-card rate): {len(timed) / seconds:.3f} steps/sec, "
+              f"{seconds / len(timed) * 1e3:.1f} ms per step; checksums "
+              f"{[s['checksum'] for s in reports[0]['steps'][kind]]} the same on every rank "
+              f"after every step on {card}")
+        out[kind] = len(timed) / seconds
+    if any(out["launches"]):
+        fail(f"dp rl gloo launched the MAT-norm kernels: {out['launches']}")
+    return out
+
+
+# -- phase 22: the collection loop -----------------------------------------------
+
+class CollectStubEnv:
+    """What ``collect_dataset.collect`` needs of cheetah-run without MuJoCo:
+    a 17-dim state (qpos[1:] and qvel), 6 actions in [-1, 1] from a seeded
+    action space, ``physics.data.qpos``/``qvel`` (9 + 9) and
+    ``physics.model.nq``, seeded linear dynamics and cheetah's 250-step
+    horizon. ``stamps`` holds the host time of every step."""
+
+    def __init__(self, seed: int) -> None:
+        from types import SimpleNamespace
+
+        import numpy as np
+
+        from s2p_tpu_torch.envs import Box
+
+        self.observation_space = Box(-np.inf, np.inf, shape=(STATE_DIM,))
+        self.action_space = Box(-np.ones(ACT_DIM), np.ones(ACT_DIM))
+        self.action_space.seed(seed)
+        self._max_episode_steps = CHEETAH_HORIZON
+        self._rs = np.random.RandomState(seed)
+        self._mix = 0.1 * self._rs.randn(9, ACT_DIM)
+        self.physics = SimpleNamespace(data=SimpleNamespace(qpos=np.zeros(9), qvel=np.zeros(9)),
+                                       model=SimpleNamespace(nq=9))
+        self.stamps: list = []
+
+    def _obs(self):
+        import numpy as np
+
+        d = self.physics.data
+        return np.concatenate([d.qpos[1:], d.qvel]).astype(np.float32)
+
+    def reset(self):
+        d = self.physics.data
+        d.qpos[:] = 0.1 * self._rs.randn(9)
+        d.qvel[:] = 0.1 * self._rs.randn(9)
+        self._t = 0
+        return self._obs()
+
+    def step(self, action):
+        import numpy as np
+
+        d = self.physics.data
+        d.qvel[:] = 0.95 * d.qvel + self._mix @ np.clip(action, -1.0, 1.0)
+        d.qpos[:] += 0.05 * d.qvel
+        self._t += 1
+        self.stamps.append(time.perf_counter())
+        truncated = self._t >= self._max_episode_steps
+        return self._obs(), float(d.qvel[0]), truncated, {"TimeLimit.truncated": truncated}
+
+
+def phase_collect(ck, card: str, profile_dir: str | None) -> dict:
+    """Phase 22: ``collect_dataset.collect`` (SAC 256 x 2, batch 256, one
+    train step per env step after COLLECT_RANDOM random steps) for
+    COLLECT_STEPS steps of ``CollectStubEnv`` on the card: the JAX script's
+    keys, dtypes and shapes, finite values, the env steps/sec of the random
+    and of the training phase, no MAT-norm launch (counts reset just before
+    and read just after), and a profile of one SAC step."""
+    import numpy as np
+    import torch
+
+    from s2p_tpu_torch.cli.collect_dataset import RECORD_KEYS, build_parser, collect
+    from s2p_tpu_torch.rl import CriticSLAC, SACTrainer, TanhGaussianPolicy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = build_parser().parse_args(["--num_steps", str(COLLECT_STEPS), "--start_random_steps",
+                                      str(COLLECT_RANDOM), "--log_interval", "1000"])
+    env = CollectStubEnv(seed=0)
+    ck.fused_mat_norm.launches = ck.fused_mat_norm_bwd.launches = 0
+    t0 = time.perf_counter()
+    ds = collect(env, args, torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(launches=ck.fused_mat_norm.launches, bwd_launches=ck.fused_mat_norm_bwd.launches)
+    n, R = COLLECT_STEPS, COLLECT_RANDOM
+    shapes = dict(observations=(n, STATE_DIM), actions=(n, ACT_DIM), rewards=(n,),
+                  next_observations=(n, STATE_DIM), terminals=(n,), timeouts=(n,),
+                  qpos_qvel=(n, 18))
+    if tuple(ds) != RECORD_KEYS or any(ds[k].shape != s or ds[k].dtype != np.float32
+                                       for k, s in shapes.items()):
+        fail(f"collect: {[(k, v.shape, v.dtype) for k, v in ds.items()]}, expected {shapes} "
+             "in float32")
+    if not all(np.isfinite(v).all() for v in ds.values()):
+        fail("collect: non-finite values")
+    if ds["timeouts"].sum() != n // CHEETAH_HORIZON or ds["terminals"].any():
+        fail(f"collect: {ds['timeouts'].sum()} timeouts, {ds['terminals'].sum()} terminals")
+    if launches["launches"] or launches["bwd_launches"]:
+        fail(f"collect launched the MAT-norm kernels: {launches}")
+    st = env.stamps
+    random_sps = (R - 1) / (st[R - 1] - st[0])
+    train_sps = (n - R - 1) / (st[n - 1] - st[R])
+    sac = SACTrainer(TanhGaussianPolicy(STATE_DIM, SAC_HIDDEN, ACT_DIM, seed=0),
+                     CriticSLAC(STATE_DIM, ACT_DIM, SAC_HIDDEN, seed=1), seed=0, device="cuda")
+    rows = np.random.RandomState(0).randint(0, n, SAC_BATCH)
+    batch = {k: ds[k][rows] for k in ("observations", "actions", "rewards", "terminals",
+                                       "next_observations")}
+    sac.train(batch)
+    summary = profile_device(lambda: sac.train(batch), profile_dir, "sac_step")
+    print(f"collect (SAC 256 x 2, batch {SAC_BATCH}, stub env, state 17, qpos/qvel 9 + 9): "
+          f"{n} env steps in {elapsed:.2f} s ({n / elapsed:.1f} env steps/sec overall); "
+          f"{R} random steps at {random_sps:.1f} env steps/sec, then one SAC step per env step "
+          f"at {train_sps:.1f} env steps/sec; one SAC step {summary['launches']} launches, "
+          f"idle share {summary['device_idle_share']:.3f}; return of the last episode "
+          f"{ds['rewards'][-CHEETAH_HORIZON:].sum():.2f}; keys, dtypes and shapes those of "
+          f"collect_dataset.py on {card}")
+    return dict(launches, sps=n / elapsed, random_sps=random_sps, train_sps=train_sps,
+                step_launches=summary["launches"], idle=summary["device_idle_share"])
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -2736,16 +3367,33 @@ def main() -> None:
     tp = phase_tp(gen_cpu, card)
     print(f"phase 20c: {time.time() - t0:.1f} s")
 
+    # phase 21: data-parallel IQL, CQL and SLAC steps (a main path each: world 1
+    # over NCCL with the state loops, 2 gloo ranks on this card)
+    t0 = time.time()
+    dp_rl = phase_dp_rl_nccl(ck, card, pretrain, generated, generated_frames)
+    print(f"phase 21a, 21c: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    dp_rl_gloo = phase_dp_rl_gloo(card, pretrain["latent"])
+    print(f"phase 21b: {time.time() - t0:.1f} s")
+
+    # phase 22: the collection loop, a main path
+    t0 = time.time()
+    collection = phase_collect(ck, card, args.profile)
+    print(f"phase 22: {time.time() - t0:.1f} s")
+
     by_path = dict(serving=serving["launches"], training=training["fwd"], bridge=bridge,
                    gb_int8=gb_int8, slac_pretrain=pretrain["launches"], slac_iql=iql["launches"],
                    cql_slac=cql["launches"], eval_metrics=evals["launches"],
                    rl_loop=rl["launches"], dp_nccl=dp_nccl["fwd"], dp_gloo=dp_gloo["fwd"],
-                   tp=tp)
+                   tp=tp, dp_rl_nccl=dp_rl["launches"]["fwd"],
+                   dp_rl_gloo=dp_rl_gloo["launches"][0], collection=collection["launches"])
     bwd_by_path = dict(serving=0, training=training["bwd"], bridge=0, gb_int8=0,
                        slac_pretrain=pretrain["bwd_launches"], slac_iql=iql["bwd_launches"],
                        cql_slac=cql["bwd_launches"], eval_metrics=evals["bwd_launches"],
                        rl_loop=rl["bwd_launches"], dp_nccl=dp_nccl["bwd"],
-                       dp_gloo=dp_gloo["bwd"], tp=0)
+                       dp_gloo=dp_gloo["bwd"], tp=0, dp_rl_nccl=dp_rl["launches"]["bwd"],
+                       dp_rl_gloo=dp_rl_gloo["launches"][1],
+                       collection=collection["bwd_launches"])
     fwd_record = dict(
         name="fused_mat_norm", route="cuda", source="s2p_tpu_torch/csrc/fused_mat_norm.cu",
         replaces="s2p_tpu/gan/pallas_kernels.py:49", launches=sum(by_path.values()),

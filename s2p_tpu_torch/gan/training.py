@@ -51,7 +51,7 @@ from s2p_tpu_torch.gan.losses import (
     r1_penalty,
 )
 from s2p_tpu_torch.gan.perceptual import PerceptualLoss
-from s2p_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, all_reduce_mean, shard_batch
+from s2p_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, mean_metrics, shard_batch, sync_grads
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -142,17 +142,10 @@ class GANTrainer:
         as their ``.grad``, then one step."""
         params = list(module.parameters())
         grads = torch.autograd.grad(loss, params, materialize_grads=True)
-        self.sync_grads(grads)
+        sync_grads(grads, self.dp_group)
         for p, g in zip(params, grads):
             p.grad = g
         opt.step()
-
-    def sync_grads(self, grads) -> None:
-        """Average ``grads`` in place over the data-parallel ranks (one flat
-        all-reduce and the copies back); nothing without a group."""
-        if self.dp_group is not None:
-            for g, mean in zip(grads, all_reduce_mean(grads, self.dp_group)):
-                g.copy_(mean)
 
     def _d_update(self, state, prev, real):
         G, D, cfg = self.generator, self.discriminator, self.loss_cfg
@@ -217,9 +210,7 @@ class GANTrainer:
         metrics = dict(d_loss=d_loss, g_loss=g_loss, **aux)
         if self.loss_cfg.r1_gamma > 0.0:
             metrics["d_r1"] = d_r1
-        if self.dp_group is not None:
-            metrics = dict(zip(metrics, all_reduce_mean(list(metrics.values()), self.dp_group)))
-        return metrics
+        return mean_metrics(metrics, self.dp_group)
 
     def train_many(self, data: Mapping[str, torch.Tensor], num_steps: int, batch_size: int,
                    generator: Optional[torch.Generator] = None,

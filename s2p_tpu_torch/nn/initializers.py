@@ -12,6 +12,8 @@ torch shape past its first axis in both.
 - ``uniform_``: U(−bound, bound), the rlkit last-layer init.
 - ``uniform_bias``: the constant-fill bias init.
 - ``lecun_normal_``: flax's default kernel init (truncated normal).
+- ``scaled_orthogonal_``: an orthogonal matrix times a gain, SLAC's
+  initializer (rlkit's ``slac/network/initializer.py``).
 """
 
 from __future__ import annotations
@@ -52,6 +54,15 @@ def lecun_normal_(weight: torch.Tensor, gen: torch.Generator, fan: int | None = 
     std = math.sqrt(1.0 / (fan or fan_in(weight))) / 0.87962566103423978
     return weight.copy_(nn.init.trunc_normal_(torch.empty(weight.shape), std=std, a=-2 * std,
                                               b=2 * std, generator=gen))
+
+
+@torch.no_grad()
+def scaled_orthogonal_(weight: torch.Tensor, gen: torch.Generator,
+                       gain: float = 1.41421356) -> torch.Tensor:
+    """Orthonormal rows (or columns, when there are fewer of them) of the
+    weight flattened past its first axis, times ``gain`` (√2, SLAC's
+    default)."""
+    return weight.copy_(nn.init.orthogonal_(torch.empty(weight.shape), gain=gain, generator=gen))
 
 
 @torch.no_grad()

@@ -10,11 +10,14 @@ from s2p_tpu_torch.parallel.mesh import (
     batch_sharding,
     local_device_count,
     make_mesh,
+    mean_metrics,
     model_shard_params,
+    rank_seed,
     replicated,
     shard_batch,
     shard_pytree,
     state_checksum,
+    sync_grads,
 )
 
 __all__ = [
@@ -26,9 +29,12 @@ __all__ = [
     "batch_sharding",
     "local_device_count",
     "make_mesh",
+    "mean_metrics",
     "model_shard_params",
+    "rank_seed",
     "replicated",
     "shard_batch",
     "shard_pytree",
     "state_checksum",
+    "sync_grads",
 ]

@@ -194,6 +194,31 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor],
     return [f.view(t.shape) for f, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
+def sync_grads(grads: Sequence[torch.Tensor], group: Optional[dist.ProcessGroup]) -> None:
+    """Average ``grads`` in place over ``group``'s ranks: one all-reduce of
+    one flat buffer, then the copies back; nothing without a group."""
+    if group is not None:
+        for g, mean in zip(grads, all_reduce_mean(grads, group)):
+            g.copy_(mean)
+
+
+def mean_metrics(metrics: Dict[str, torch.Tensor], group: Optional[dist.ProcessGroup]
+                 ) -> Dict[str, torch.Tensor]:
+    """Each 0-d metric averaged over ``group``'s ranks (one all-reduce);
+    ``metrics`` itself without a group."""
+    if group is None:
+        return metrics
+    return dict(zip(metrics, all_reduce_mean(list(metrics.values()), group)))
+
+
+def rank_seed(seed: int, group: Optional[dist.ProcessGroup]) -> int:
+    """The seed of this rank's random stream: ``seed`` at rank 0 of
+    ``group`` (or without one), a distinct 32-bit seed at every other rank
+    (a CPU generator keeps only the low 32 bits of its seed)."""
+    rank = dist.get_rank(group) if group is not None else 0
+    return (seed + 0x9E3779B9 * rank) % 2**32
+
+
 def all_gather_cat(x: torch.Tensor, dim: int, group: dist.ProcessGroup) -> torch.Tensor:
     """``x`` of every rank of ``group``, concatenated along ``dim`` in rank
     order (gathered on a view with ``dim`` last, which is a channels_last

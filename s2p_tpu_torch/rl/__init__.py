@@ -1,5 +1,5 @@
 """The offline-RL networks and trainers (the port of ``s2p_tpu/rl``'s
-policies, critics, samplers, IQL, SAC and CQL)."""
+policies, critics, samplers, IQL, SAC, CQL and the VAE policy)."""
 
 from s2p_tpu_torch.rl.policies import (
     GaussianPolicy,
@@ -20,7 +20,13 @@ from s2p_tpu_torch.rl.critics import (
 from s2p_tpu_torch.rl.iql import IQLTrainer, iql_full_state_from_jax, jax_iql_full_state
 from s2p_tpu_torch.rl.sac import SACTrainer
 from s2p_tpu_torch.rl.cql import CQLTrainer, cql_full_state_from_jax, jax_cql_full_state
-from s2p_tpu_torch.rl.scan_utils import make_flat_sampler, make_window_sampler
+from s2p_tpu_torch.rl.scan_utils import make_flat_sampler, make_window_sampler, train_many_dp
+from s2p_tpu_torch.rl.vae_policy import (
+    PolicyFromQ,
+    VAEPolicy,
+    elbo_loss,
+    state_dict_from_jax_vae_params,
+)
 
 __all__ = [
     "GaussianPolicy",
@@ -44,4 +50,9 @@ __all__ = [
     "jax_cql_full_state",
     "make_flat_sampler",
     "make_window_sampler",
+    "train_many_dp",
+    "PolicyFromQ",
+    "VAEPolicy",
+    "elbo_loss",
+    "state_dict_from_jax_vae_params",
 ]

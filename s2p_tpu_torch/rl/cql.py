@@ -29,6 +29,10 @@ Every draw comes from the trainer's generator or is given: ``train(batch,
 draws=)`` takes ``posterior`` (the posterior noise of ``prepare_batch``),
 ``pi`` and ``next`` ([B, A]), ``random``, ``pi_tiled`` and ``next_tiled``
 ([B·N, A]), JAX's keys 0–5 of a step.
+
+Data parallelism (``dp_group``) as ``SACTrainer`` has it: α's, the
+policy's and then the critic's gradient (with α′'s, from the same
+backward) are each averaged over the ranks before their own Adam step.
 """
 
 from __future__ import annotations
@@ -38,7 +42,9 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from s2p_tpu_torch.parallel.mesh import mean_metrics
 from s2p_tpu_torch.rl.critics import CriticSLAC
 from s2p_tpu_torch.rl.sac import Draws, SACTrainer
 from s2p_tpu_torch.rl.scan_utils import train_many
@@ -64,10 +70,11 @@ class CQLTrainer(SACTrainer):
                  num_random: int = 10, deterministic_backup: bool = False, slac_algo=None,
                  slac_policy_input_type: str = "feature_action", slac_update_period: int = 1,
                  freeze_slac: bool = False, seed: int = 0,
-                 device: str | torch.device = "cuda") -> None:
+                 device: str | torch.device = "cuda",
+                 dp_group: Optional[dist.ProcessGroup] = None) -> None:
         super().__init__(policy, critic, discount, reward_scale, policy_lr, qf_lr,
                          soft_target_tau, target_update_period, use_automatic_entropy_tuning,
-                         target_entropy, seed, device)
+                         target_entropy, seed, device, dp_group)
         self.policy_eval_start = policy_eval_start
         self.temp, self.min_q_version, self.min_q_weight = temp, min_q_version, min_q_weight
         self.with_lagrange, self.target_action_gap = with_lagrange, lagrange_thresh
@@ -163,6 +170,7 @@ class CQLTrainer(SACTrainer):
         self.critic_opt.zero_grad(set_to_none=True)
         self.alpha_prime_opt.zero_grad(set_to_none=True)
         critic_loss.backward()
+        self._sync_grads([*self.critic.parameters(), self.log_alpha_prime])
         self.critic_opt.step()
         if self.with_lagrange:  # α′ ascends the thresholded penalty
             self.log_alpha_prime.grad.mul_(-0.5)
@@ -176,7 +184,7 @@ class CQLTrainer(SACTrainer):
                        log_pi=log_pi.mean(), alpha=alpha, alpha_loss=alpha_loss)
         if self.with_lagrange:
             metrics["alpha_prime"] = self.log_alpha_prime.exp().clamp(0.0, 1e6)
-        return {k: v.detach() for k, v in metrics.items()}
+        return mean_metrics({k: v.detach() for k, v in metrics.items()}, self.dp_group)
 
     # -- trainer protocol -----------------------------------------------------
     def train(self, batch: Mapping[str, Any], draws: Draws = None,

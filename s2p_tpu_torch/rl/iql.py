@@ -19,6 +19,15 @@ device (the JAX package scans). Every draw (batch indices, posterior noise)
 comes from one ``torch.Generator`` on the trainer's device, seeded from
 ``seed + 1``; the latent step draws from the SLAC algorithm's own.
 ``eval_statistics`` has the JAX package's keys.
+
+Data parallelism (``dp_group``, the mesh's data group): JAX replicates the
+trainer's states and shards the batch over the mesh's data axis. Here
+each rank steps on its part of the global batch with its own generator
+(seeded per rank, ``rank_seed``); the critic's and the policy's gradients
+are averaged over the ranks in one flat all-reduce before either Adam
+steps, on every step whatever the update periods (so that the ranks stay
+in lockstep), and the metrics after the step. Every loss and metric is a
+batch mean, so the averaged step is the step on the global batch.
 """
 
 from __future__ import annotations
@@ -27,8 +36,10 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from s2p_tpu_torch.nn.convert import jax_dense_tree_from_state_dict
+from s2p_tpu_torch.parallel.mesh import mean_metrics, rank_seed, sync_grads
 from s2p_tpu_torch.rl.critics import CriticSLAC, q_subtree, soft_update
 from s2p_tpu_torch.rl.state import (
     adam,
@@ -50,9 +61,12 @@ class IQLTrainer:
                  terminal_transform: Optional[Tuple[float, float]] = None,
                  slac_algo=None, slac_policy_input_type: str = "feature_action",
                  slac_update_period: int = 1, freeze_slac: bool = False, seed: int = 0,
-                 device: str | torch.device = "cuda") -> None:
+                 device: str | torch.device = "cuda",
+                 dp_group: Optional[dist.ProcessGroup] = None) -> None:
         self.device = torch.device(device)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.dp_group = dp_group
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(seed + 1, dp_group))
         self.policy = policy.to(self.device)
         self.critic = critic.to(self.device)
         self.target_q = q_subtree(self.critic)
@@ -119,6 +133,8 @@ class IQLTrainer:
         self.critic_opt.zero_grad(set_to_none=True)
         self.policy_opt.zero_grad(set_to_none=True)
         (critic_loss + policy_loss).backward()  # disjoint parameters: two losses' gradients
+        sync_grads([p.grad for net in (self.critic, self.policy) for p in net.parameters()
+                    if p.grad is not None], self.dp_group)
         if step % self.q_update_period == 0:
             self.critic_opt.step()
         if step % self.policy_update_period == 0:
@@ -130,7 +146,7 @@ class IQLTrainer:
                        vf_loss=vf_loss, q1_pred=q1.mean(), q2_pred=q2.mean(),
                        q_target=q_target.mean(), vf_pred=vf.mean(), policy_loss=policy_loss,
                        policy_logpp=logpp.mean(), awr_weights=weights.mean())
-        return {k: v.detach() for k, v in metrics.items()}
+        return mean_metrics({k: v.detach() for k, v in metrics.items()}, self.dp_group)
 
     def _record(self, metrics: Dict[str, torch.Tensor]) -> None:
         if self._need_stats:

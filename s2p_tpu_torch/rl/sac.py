@@ -19,6 +19,15 @@ given (``train(batch, draws=)``), so that a test can hand the port the
 draws JAX makes from its keys. Temperatures are 0-dim tensors in the
 networks' dtype; every Adam is ``optax.adam``. ``CQLTrainer`` extends this
 class.
+
+Data parallelism (``dp_group``, the mesh's data group): each rank steps on
+its part of the global batch with its own generator (seeded per rank,
+``rank_seed``). A step runs its updates in sequence, each on what the one
+before it changed (the policy's loss sees the updated α; the critic's
+target the updated policy), so each gradient is averaged over the ranks
+(one flat all-reduce) right after it is taken and before its own Adam
+step; the metrics are averaged after the step. Every loss and metric is a
+batch mean, so the averaged step is the step on the global batch.
 """
 
 from __future__ import annotations
@@ -26,8 +35,10 @@ from __future__ import annotations
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from s2p_tpu_torch.nn.convert import jax_dense_tree_from_state_dict
+from s2p_tpu_torch.parallel.mesh import mean_metrics, rank_seed, sync_grads
 from s2p_tpu_torch.rl.critics import CriticSLAC, q_subtree, soft_update
 from s2p_tpu_torch.rl.state import adam
 
@@ -40,9 +51,12 @@ class SACTrainer:
                  soft_target_tau: float = 5e-3, target_update_period: int = 1,
                  use_automatic_entropy_tuning: bool = True,
                  target_entropy: Optional[float] = None, seed: int = 0,
-                 device: str | torch.device = "cuda") -> None:
+                 device: str | torch.device = "cuda",
+                 dp_group: Optional[dist.ProcessGroup] = None) -> None:
         self.device = torch.device(device)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.dp_group = dp_group
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(seed + 1, dp_group))
         self.policy = policy.to(self.device)
         self.critic = critic.to(self.device)
         self.target_q = q_subtree(self.critic)
@@ -93,6 +107,7 @@ class SACTrainer:
         alpha_loss = -(self.log_alpha * (log_pi + self.target_entropy)).mean()
         self.alpha_opt.zero_grad(set_to_none=True)
         alpha_loss.backward()
+        self._sync_grads([self.log_alpha])
         self.alpha_opt.step()
         return self.log_alpha.detach().exp(), alpha_loss.detach()
 
@@ -103,7 +118,13 @@ class SACTrainer:
         params = list(self.policy.parameters())
         for p, g in zip(params, torch.autograd.grad(loss, params)):
             p.grad = g
+        self._sync_grads(params)
         self.policy_opt.step()
+
+    def _sync_grads(self, params) -> None:
+        """Average the gradients of ``params`` (those that have one) over the
+        data-parallel ranks."""
+        sync_grads([p.grad for p in params if p.grad is not None], self.dp_group)
 
     def _update_targets(self, step: int) -> None:
         if step % self.target_update_period == 0:
@@ -140,12 +161,13 @@ class SACTrainer:
         critic_loss = qf1_loss + qf2_loss
         self.critic_opt.zero_grad(set_to_none=True)
         critic_loss.backward()
+        self._sync_grads(self.critic.parameters())
         self.critic_opt.step()
         self._update_targets(step)
         metrics = dict(policy_loss=policy_loss, alpha=alpha, alpha_loss=alpha_loss,
                        log_pi=log_pi.mean(), critic_loss=critic_loss, qf1_loss=qf1_loss,
                        qf2_loss=qf2_loss, q1_pred=q1.mean(), q2_pred=q2.mean())
-        return {k: v.detach() for k, v in metrics.items()}
+        return mean_metrics({k: v.detach() for k, v in metrics.items()}, self.dp_group)
 
     def _record(self, metrics: Dict[str, torch.Tensor]) -> None:
         if self._need_stats:

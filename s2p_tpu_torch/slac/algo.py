@@ -22,6 +22,15 @@ latent model's initial weights from a CPU generator of the same seed. The
 JAX package draws from split PRNG keys, which the port cannot reproduce:
 ``update_latent`` and ``prepare_batch`` take given indices and noise
 instead, for comparisons.
+
+Data parallelism (``dp_group``, the mesh's data group): JAX replicates the
+latent model and its Adam state and shards the window batch over the
+mesh's data axis. Here each rank draws ``batch_size_latent``/d windows (d
+ranks) from its own generator, seeded per rank (``rank_seed``), and
+``latent_step`` averages the ELBO gradient over the ranks (one flat
+all-reduce) before Adam's step, and the three losses after it. The ELBO
+reduces with ``.mean(0).sum()`` and a mean of equal-size shards is the
+global mean, so the averaged step is the step on the global batch.
 """
 
 from __future__ import annotations
@@ -33,9 +42,11 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from s2p_tpu_torch.data.hdf5 import load_augment_dataset, load_rl_dataset
 from s2p_tpu_torch.data.replay import SlacReplayBuffer, draw_indices, frames_to_float
+from s2p_tpu_torch.parallel.mesh import all_reduce_mean, rank_seed, sync_grads
 from s2p_tpu_torch.slac.convert import (
     convert_latent_state_dict,
     jax_latent_params_from_state_dict,
@@ -50,12 +61,20 @@ class SlacAlgorithm:
                  z1_dim: int = 32, z2_dim: int = 256,
                  hidden_units: Tuple[int, int] = (256, 256), image_size: int = 64,
                  channels: int = 3, use_seperate_buffer: bool = False, seed: int = 0,
-                 device: str | torch.device = "cuda") -> None:
+                 device: str | torch.device = "cuda",
+                 dp_group: Optional[dist.ProcessGroup] = None) -> None:
         self.device = torch.device(device)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.dp_group = dp_group
+        ranks = dist.get_world_size(dp_group) if dp_group is not None else 1
+        if batch_size_latent % ranks:
+            raise ValueError(f"batch_size_latent {batch_size_latent} does not divide over "
+                             f"{ranks} data ranks")
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(seed, dp_group))
         self.action_dim = action_dim
         self.num_sequences = num_sequences
         self.batch_size_latent = batch_size_latent
+        self.rank_batch_size_latent = batch_size_latent // ranks
         self.image_size = image_size
         self.z_dim = z1_dim + z2_dim
         self.feature_dim = feature_dim
@@ -85,25 +104,31 @@ class SlacAlgorithm:
     # -- steps --------------------------------------------------------------
     def latent_step(self, obs: torch.Tensor, act: torch.Tensor, rew: torch.Tensor,
                     done: torch.Tensor, noise: Noise = None):
-        """One ELBO step on a window batch; returns (loss_kld, loss_image,
-        loss_reward) as tensors on the device. The posterior noise is
-        ``noise`` (a list) or drawn from the algorithm's generator."""
+        """One ELBO step on a window batch (this rank's part of it under
+        data parallelism); returns (loss_kld, loss_image, loss_reward) as
+        tensors on the device, averaged over the ranks. The posterior noise
+        is ``noise`` (a list) or drawn from the algorithm's generator."""
         obs, act, rew, done = (t.to(self.dtype) for t in (obs, act, rew, done))
         self.opt.zero_grad(set_to_none=True)
         kld, img, r = self.latent.compute_loss(obs, act, rew, done,
                                                self.generator if noise is None else noise)
         (kld + img + r).backward()
+        sync_grads([p.grad for p in self.latent.parameters() if p.grad is not None],
+                   self.dp_group)
         self.opt.step()
-        return kld.detach(), img.detach(), r.detach()
+        losses = [kld.detach(), img.detach(), r.detach()]
+        return tuple(all_reduce_mean(losses, self.dp_group))
 
     def update_latent(self, buffer: Optional[SlacReplayBuffer] = None,
                       idx: Optional[torch.Tensor] = None,
                       noise: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """One ELBO step on ``batch_size_latent`` windows of ``buffer`` (the
-        main buffer by default): the slots ``idx``, or drawn uniformly."""
+        main buffer by default; ``batch_size_latent``/d on each of d data
+        ranks): the slots ``idx``, or drawn uniformly."""
         buf = self.buffer if buffer is None else buffer
         if idx is None:
-            idx = draw_indices(0, len(buf), self.batch_size_latent, self.generator, self.device)
+            idx = draw_indices(0, len(buf), self.rank_batch_size_latent, self.generator,
+                               self.device)
         self.learning_steps_latent += 1
         kld, img, rew = self.latent_step(*buf.gather(idx), noise)
         return {"loss_kld": kld, "loss_image": img, "loss_reward": rew}
