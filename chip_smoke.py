@@ -238,6 +238,31 @@ shapes at batch 4 (20c, f32).
     env steps/sec of the random and of the training phase from the stub's
     step stamps; no MAT-norm launch (counts reset around it); a profile of
     one SAC step (launches, idle share).
+23. the CURL/RAD pixel path (a main path): 3-frame stacks (9 channels) of
+    phase 11's 100px bridge frames. (a) every augmentation of
+    ``nn.augmentations`` on the card against the CPU on the same draws
+    (batch 128; crop, translate, cutout, flip, rotation and no-aug
+    bit-equal; grayscale, the random convolution and the colour jitter
+    within 1 uint8 step on ≤ 1% of the values), with its time a call.
+    (b) one f32 step (TF32 off) at full width (encoder feature 50, 4 layers
+    of 32 filters, fc fan-in 39,200; heads 1024 x 2; action 6) on 16 rows of
+    84px crops, on the card and on the CPU in f32 and f64 (the encoders'
+    ReLU slopes replayed from the card's step): the encoder critic's twin-Q
+    TD loss and CURL's loss and their gradients, the policy-with-encoder's
+    sample, log-prob and policy-loss gradients (its convs get none), held as
+    phase 7 holds its step. (c) pixel updates/sec at batch 128 (crop on the
+    card → critic + CURL loss → backward → Adam), with one update's
+    launches, device time and idle share; no MAT-norm launch.
+24. the goal-conditioned and multitask path (a main path) on
+    ``testing.goal_env.PointRobotGoalEnv``: ``GoalConditionedPathCollector``
+    with a ``TanhGaussianPolicy`` (256 x 2) on the card fills
+    ``ObsDictRelabelingBuffer`` (2,000 env steps); a relabelled batch's
+    rewards are the env's for its goals; one SAC step on it card f32 vs CPU
+    f32/f64 as phase 16's; 200 SAC steps (256 x 2, batch 256) on
+    relabelled batches; then ``MetaRLAlgorithm`` over
+    ``MultiTaskReplayBuffer`` (3 iterations of 10 tasks x 20 env steps and
+    20 SAC steps on 4 tasks x 64 rows). Env steps/sec and SAC steps/sec;
+    no MAT-norm launch.
 
 ``--ab DIR`` runs phases 1 and 2, then times the MAT-norm kernels against
 those of the checkout in DIR in turns, then the two main paths end to end
@@ -251,8 +276,8 @@ The last two lines are the per-kernel JSON record and
 torch.profiler summary of one throughput rollout, of one bf16 train step,
 of four bridge batches, of 20 ensemble steps, of one ``gb_int8`` rollout,
 of one ELBO step, of one IQL + SLAC step, of one CQL + SLAC step, of one
-LPIPS batch, of one FID extraction batch, of one acting step and of one
-SAC step of the collection loop to DIR.
+LPIPS batch, of one FID extraction batch, of one acting step, of one
+SAC step of the collection loop and of one pixel update to DIR.
 """
 
 from __future__ import annotations
@@ -377,6 +402,22 @@ DP_RL_STEPS, DP_RL_GLOO_STEPS, DP_RL_PARITY_BATCH, DP_RL_ROWS = 15, 3, 8, 1000
 STATE_HIDDEN, STATE_ROWS, STATE_STEPS, STATE_PARITY_STEPS = (256, 256), 20_000, 50, 5
 # the collection loop (phase 22): collect_dataset.py's SAC on a stub of cheetah
 COLLECT_STEPS, COLLECT_RANDOM = 2000, 1000
+# the CURL/RAD pixel path (phase 23): the encoder's defaults (feature 50, 4
+# layers of 32 filters), heads 1024 x 2, 3 stacked 100px frames (9 channels)
+# cropped to 84 (fc fan-in OUT_DIM_84[4]^2 x 32 = 39,200), batch 128 (the RL
+# CLI's --batch_size), action 6; the f32 step held to f64 on the CPU at
+# PIXEL_PARITY_BATCH rows (an f64 step at 128 costs ~40 s of the card
+# machine's CPU); PIXEL_STEPS timed updates
+PIXEL_ENC = dict(feature_dim=50, num_layers=4, num_filters=32)
+PIXEL_HIDDEN, PIXEL_STACK, PIXEL_CROP, PIXEL_BATCH = (1024, 1024), 3, 84, 128
+PIXEL_TRANSLATE, PIXEL_CUTOUT = 108, (10, 30)
+PIXEL_PARITY_BATCH, PIXEL_STEPS, PIXEL_LR = 16, 50, 1e-3
+# the goal-conditioned and multitask path (phase 24): a goal-dict point robot
+# (10 tasks, 20-step episodes), SAC 256 x 2 at batch 256 (collect_dataset.py's),
+# HER with 20% rollout goals; the meta loop: 10 tasks an iteration, 4 tasks x
+# 64 rows a SAC batch
+GOAL_ENV_STEPS, GOAL_BUFFER, GOAL_SAC_STEPS = 2000, 10_000, 200
+META_ITERS, META_TRAIN_STEPS, META_TASKS, META_BATCH = 3, 20, 4, 64
 
 
 def fail(msg: str) -> None:
@@ -3241,6 +3282,342 @@ def phase_collect(ck, card: str, profile_dir: str | None) -> dict:
                 step_launches=summary["launches"], idle=summary["device_idle_share"])
 
 
+# -- phase 23: the CURL/RAD pixel path ------------------------------------------------
+
+def stacked_frames(frames):
+    """[N, H, W, 3] uint8 frames → (obs, next_obs) [N − PIXEL_STACK, H, W,
+    3·PIXEL_STACK] stacks of consecutive frames on the last axis, as
+    ``envs.FrameStack`` stacks them."""
+    import numpy as np
+
+    n = len(frames) - PIXEL_STACK
+    stack = lambda lo: np.concatenate([frames[lo + i:lo + i + n]  # noqa: E731
+                                       for i in range(PIXEL_STACK)], axis=-1)
+    return stack(0), stack(1)
+
+
+def aug_cases(x):
+    """(name, positional arguments, CPU draws) of every augmentation at the
+    path's sizes, the draws from one seeded CPU generator."""
+    import torch
+
+    from s2p_tpu_torch.nn import augmentations as aug
+
+    g = torch.Generator().manual_seed(230)
+    B, H, W, C = x.shape
+    lo, hi = PIXEL_CUTOUT
+    ri = lambda a, b, shape: torch.randint(a, b, shape, generator=g)  # noqa: E731
+    mask = lambda p: torch.rand(B, generator=g) < p  # noqa: E731
+    cut = lambda: dict(sizes=ri(lo, hi, (B,)), h0=ri(0, H - hi, (B,)),  # noqa: E731
+                       w0=ri(0, W - hi, (B,)))
+    u = lambda a, b, shape: aug._uniform(g, a, b, shape, "cpu")  # noqa: E731
+    return [
+        ("crop", (PIXEL_CROP,), dict(h=ri(0, H - PIXEL_CROP + 1, (B,)),
+                                     w=ri(0, W - PIXEL_CROP + 1, (B,)))),
+        ("translate", (PIXEL_TRANSLATE,), dict(h=ri(0, PIXEL_TRANSLATE - H + 1, (B,)),
+                                               w=ri(0, PIXEL_TRANSLATE - W + 1, (B,)))),
+        ("grayscale", (0.3,), dict(mask=mask(0.3))),
+        ("cutout", PIXEL_CUTOUT, cut()),
+        ("cutout_color", PIXEL_CUTOUT, dict(color=ri(0, 255, (B, C)), **cut())),
+        ("flip", (0.2,), dict(mask=mask(0.2))),
+        ("rotation", (0.3,), dict(mask=mask(0.3), rot=ri(1, 4, (B,)))),
+        ("convolution", (), dict(weights=u(-1.0, 1.0, (B, 3, 3, C, C)))),
+        ("color_jitter", (), dict(b=u(0.6, 1.4, (B, 1, 1, 1)), c=u(0.6, 1.4, (B, 1, 1, 1)))),
+        ("no_aug", (), {}),
+    ]
+
+
+def pixel_nets(device, dtype, seed=0):
+    """The critic, its target copy, the policy with an encoder and CURL over
+    the critic's encoder, seeded, in ``dtype`` on ``device``."""
+    from s2p_tpu_torch.rl import CURL, EncoderCritic, PixelEncoder, TanhGaussianPolicyWithEncoder
+
+    shape = (PIXEL_CROP, PIXEL_CROP, 3 * PIXEL_STACK)
+    critic = EncoderCritic(PixelEncoder(shape, seed=seed, device=device, **PIXEL_ENC), ACT_DIM,
+                           PIXEL_HIDDEN, seed=seed + 1).to(dtype)
+    policy = TanhGaussianPolicyWithEncoder(
+        PixelEncoder(shape, seed=seed + 2, device=device, **PIXEL_ENC), ACT_DIM, PIXEL_HIDDEN,
+        seed=seed + 3).to(dtype)
+    curl = CURL(critic.encoder, seed=seed + 4).to(dtype)
+    return critic, copy.deepcopy(critic).requires_grad_(False), policy, curl
+
+
+def pixel_losses(critic, target, curl, b):
+    """The critic's twin-Q TD loss against the target copy (discount 0.99)
+    and CURL's loss on (anchor, positive) crops."""
+    import torch
+
+    from s2p_tpu_torch.rl import curl_loss
+
+    with torch.no_grad():
+        nq1, nq2 = target(b["next_obs"], b["next_actions"])
+        q_target = b["rewards"] + 0.99 * (1.0 - b["terminals"]) * torch.minimum(nq1, nq2)
+    q1, q2 = critic(b["obs"], b["actions"])
+    critic_loss = ((q1 - q_target) ** 2).mean() + ((q2 - q_target) ** 2).mean()
+    return critic_loss, curl_loss(curl(b["anchor"], b["positive"])), q1
+
+
+def pixel_parity_step(critic, target, policy, curl, b, eps_pi) -> dict:
+    """One f32/f64 step's record: the losses, the policy's sample and
+    log-prob (its encoder detached, as by default), the gradients of the
+    critic (+ CURL's W) from critic + CURL loss, and of the policy from
+    mean(0.1·log π − min Q) with the critic's encoder detached."""
+    import torch
+
+    critic_loss, c_loss, q1 = pixel_losses(critic, target, curl, b)
+    (critic_loss + c_loss).backward()
+    a, log_pi = policy(b["obs"]).sample_and_log_prob(eps=eps_pi)
+    q1_pi, q2_pi = critic(b["obs"], a, detach_encoder=True)
+    policy_loss = (0.1 * log_pi - torch.minimum(q1_pi, q2_pi).squeeze(-1)).mean()
+    names, params = zip(*policy.named_parameters())
+    grads = torch.autograd.grad(policy_loss, params, allow_unused=True)
+    metrics = dict(critic_loss=critic_loss.item(), curl_loss=c_loss.item(),
+                   policy_loss=policy_loss.item(), log_pi=log_pi.mean().item(),
+                   q1=q1.mean().item(), action_abs=a.abs().mean().item())
+    return dict(metrics=metrics,
+                critic_grad=_f64((k, p.grad) for k, p in critic.named_parameters()),
+                curl_w_grad=_f64([("W", curl.W.grad)]),
+                policy_grad=_f64((k, g) for k, g in zip(names, grads) if g is not None),
+                actions=_f64([("a", a), ("log_pi", log_pi)]))
+
+
+def phase_pixel_rl(ck, card: str, frames, profile_dir: str | None) -> dict:
+    """Phase 23: the CURL/RAD pixel path at full width on stacks of phase
+    11's bridge frames. (a) every augmentation on the card against the CPU
+    on the same draws; (b) one f32 step, TF32 off, on the card and on the
+    CPU in f32 and f64 (the CPU's ReLU slopes in the encoders replayed from
+    the card's step), held as phase 7 holds its step; (c) pixel updates/sec
+    (crop → critic + CURL loss → backward → Adam), with one update's
+    launches, device ms and idle share, and no MAT-norm launch."""
+    import numpy as np
+    import torch
+
+    from s2p_tpu_torch.nn import augmentations as aug
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    obs_np, next_np = stacked_frames(frames)
+    n = len(obs_np)
+    print(f"pixel rl: {n} stacks of {PIXEL_STACK} {frames.shape[1]}px frames (phase 11's bridge), "
+          f"{obs_np.shape[-1]} channels")
+    ck.fused_mat_norm.launches = ck.fused_mat_norm_bwd.launches = 0
+
+    # (a) the augmentations, card vs CPU on one batch
+    x_cpu = torch.from_numpy(obs_np[:PIXEL_BATCH])
+    x_gpu = x_cpu.cuda()
+    for name, args, draws in aug_cases(x_cpu):
+        xc, xg = (x_cpu[..., :3], x_gpu[..., :3]) if name == "grayscale" else (x_cpu, x_gpu)
+        fn = aug.AUGMENTATIONS[name]
+        ref = fn(None, xc, *args, **draws)
+        got = fn(None, xg, *args, **draws)
+        ms = time_ms(lambda: fn(None, xg, *args, **draws), iters=10, warmup=2)
+        diff = (got.cpu().int() - ref.int()).abs()
+        share = (diff > 0).double().mean().item()
+        exact = name not in ("grayscale", "convolution", "color_jitter")
+        limit = ("bit-equal required" if exact
+                 else f"limit {BRIDGE_MAX_DIFF} step on <= {BRIDGE_DIFF_SHARE} of them")
+        print(f"pixel aug {name}: {tuple(got.shape)} {got.dtype}, max |card - cpu| "
+              f"{diff.max().item()} uint8 steps on {share:.3g} of the values ({limit}); "
+              f"{ms:.4f} ms a call on {card}")
+        if got.shape != ref.shape or got.dtype != torch.uint8:
+            fail(f"pixel aug {name}: {tuple(got.shape)} {got.dtype}, CPU {tuple(ref.shape)}")
+        if exact and share > 0:
+            fail(f"pixel aug {name}: the card differs from the CPU on {share:.3g} of the values")
+        if diff.max().item() > BRIDGE_MAX_DIFF or share > BRIDGE_DIFF_SHARE:
+            fail(f"pixel aug {name}: {diff.max().item()} steps on {share:.3g} of the values")
+
+    # (b) one step in f32 on the card, f32 and f64 on the CPU
+    g = torch.Generator().manual_seed(231)
+    P, A = PIXEL_PARITY_BATCH, ACT_DIM
+    crop = lambda x, s: aug.random_crop(torch.Generator().manual_seed(s),  # noqa: E731
+                                        torch.from_numpy(x[:P]), PIXEL_CROP)
+    unit = lambda t: t.double() * (1.0 / 255.0)  # noqa: E731
+    host = dict(obs=unit(crop(obs_np, 1)), next_obs=unit(crop(next_np, 2)),
+                anchor=unit(crop(obs_np, 3)), positive=unit(crop(obs_np, 4)),
+                actions=torch.rand(P, A, generator=g, dtype=torch.float64) * 2 - 1,
+                next_actions=torch.rand(P, A, generator=g, dtype=torch.float64) * 2 - 1,
+                rewards=torch.randn(P, 1, generator=g, dtype=torch.float64),
+                terminals=(torch.rand(P, 1, generator=g) < 0.1).double())
+    eps_pi = torch.randn(P, A, generator=g, dtype=torch.float64)
+    masks, runs = SlopeMasks(), {}
+    for i, (name, device, dtype) in enumerate((PARITY_RUNS[2], PARITY_RUNS[0], PARITY_RUNS[1])):
+        dtype = getattr(torch, dtype)
+        nets = pixel_nets(device, dtype)
+        b = {k: v.to(device, dtype) for k, v in host.items()}
+        t0 = time.time()
+        on_card = i == 0  # the card's step first: its slopes are replayed on the CPU
+        with (masks.record() if on_card else masks.replay()):
+            runs[name] = pixel_parity_step(*nets, b, eps_pi.to(device, dtype))
+        flips = "" if on_card else f", {masks.flips} encoder ReLU slopes flipped from the card's"
+        print(f"parity pixel step {name}: {time.time() - t0:.1f} s{flips}; "
+              + ", ".join(f"{k} {v:.8g}" for k, v in runs[name]["metrics"].items()))
+    pick = lambda key: {k: r[key] for k, r in runs.items()}  # noqa: E731
+    hold_to_f64("pixel step metrics", pick("metrics"), "metric")
+    hold_to_f64("pixel policy sample and log-prob", pick("actions"), "grad")
+    for part in ("critic_grad", "curl_w_grad", "policy_grad"):
+        hold_to_f64(f"pixel {part.replace('_', ' ')}ients", pick(part), "grad")
+    fc_in = runs["cuda f32"]["critic_grad"]["encoder.fc.weight"].shape[1]
+    if fc_in != 35 * 35 * PIXEL_ENC["num_filters"]:
+        fail(f"pixel encoder fc fan-in {fc_in}, expected OUT_DIM_84[4]^2 x 32")
+    conv_pol = runs["cuda f32"]["policy_grad"]
+    if any(k.startswith("encoder.conv") for k in conv_pol):
+        fail("pixel policy: its encoder's convs got a gradient (it detaches by default)")
+
+    # (c) the rate: crop -> critic + CURL loss -> backward -> Adam
+    critic, target, _, curl = pixel_nets("cuda", torch.float32)
+    params = list(critic.parameters()) + [curl.W]
+    opt = torch.optim.Adam(params, lr=PIXEL_LR)
+    obs_gpu, next_gpu = torch.from_numpy(obs_np).cuda(), torch.from_numpy(next_np).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(232)
+    inv255 = torch.tensor(np.float32(1) / np.float32(255), device="cuda")
+    rs = np.random.RandomState(233)
+    rows = torch.from_numpy(rs.randint(0, n, (PIXEL_STEPS + 3, PIXEL_BATCH))).cuda()
+    act = torch.from_numpy(rs.uniform(-1, 1, (n, ACT_DIM)).astype(np.float32)).cuda()
+    rew = torch.from_numpy(rs.randn(n, 1).astype(np.float32)).cuda()
+
+    def update(i):
+        idx = rows[i]
+        o, no = obs_gpu[idx], next_gpu[idx]
+        c = lambda x: aug.random_crop(gen, x, PIXEL_CROP).float() * inv255  # noqa: E731
+        b = dict(obs=c(o), next_obs=c(no), anchor=c(o), positive=c(o), actions=act[idx],
+                 next_actions=act[idx], rewards=rew[idx], terminals=torch.zeros_like(rew[idx]))
+        critic_loss, c_loss, _ = pixel_losses(critic, target, curl, b)
+        opt.zero_grad(set_to_none=True)
+        (critic_loss + c_loss).backward()
+        opt.step()
+        return critic_loss, c_loss
+
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults, as phase 15
+    torch.backends.cuda.matmul.allow_tf32 = False
+    first = [v.item() for v in update(0)]
+    update(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(PIXEL_STEPS):
+        losses = update(2 + i)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    last = [v.item() for v in losses]
+    summary = profile_device(lambda: update(2 + PIXEL_STEPS), profile_dir, "pixel_update")
+    launches = dict(launches=ck.fused_mat_norm.launches, bwd_launches=ck.fused_mat_norm_bwd.launches)
+    if not all(np.isfinite(first + last)):
+        fail(f"pixel updates: non-finite losses {first} -> {last}")
+    if launches["launches"] or launches["bwd_launches"]:
+        fail(f"the pixel path launched the MAT-norm kernels: {launches}")
+    print(f"pixel rl (encoder 50 / 4 x 32, heads 1024 x 2, 9 x 84 x 84 crops of 100px stacks, "
+          f"batch {PIXEL_BATCH}, f32 with cuDNN TF32): {PIXEL_STEPS} updates in {elapsed:.2f} s, "
+          f"{PIXEL_STEPS / elapsed:.2f} pixel updates/sec; one update {summary['launches']} "
+          f"launches, {summary['device_busy_ms']:.3f} ms of device time, idle share "
+          f"{summary['device_idle_share']:.3f}; critic + CURL loss {first[0]:.4f} + {first[1]:.4f} "
+          f"-> {last[0]:.4f} + {last[1]:.4f} on {card}")
+    return dict(launches, ups=PIXEL_STEPS / elapsed, step_launches=summary["launches"],
+                device_ms=summary["device_busy_ms"], idle=summary["device_idle_share"])
+
+
+# -- phase 24: the goal-conditioned and multitask path -------------------------------------
+
+def phase_goal_multitask(ck, card: str) -> dict:
+    """Phase 24: ``GoalConditionedPathCollector`` with a port
+    ``TanhGaussianPolicy`` on the card fills ``ObsDictRelabelingBuffer`` from
+    ``testing.goal_env.PointRobotGoalEnv``; its relabelled batches (rewards
+    recomputed on the host and checked) train ``SACTrainer`` on the card,
+    after one such step is held to f64 as phase 16 holds its SAC step; then
+    ``MetaRLAlgorithm`` over ``MultiTaskReplayBuffer`` on the point robot,
+    SAC on the flattened [tasks, batch] batches. Env steps/sec and SAC
+    steps/sec; no MAT-norm launch."""
+    import numpy as np
+    import torch
+
+    from s2p_tpu_torch.data import MetaRLAlgorithm, MultiTaskReplayBuffer, ObsDictRelabelingBuffer
+    from s2p_tpu_torch.envs import PointRobotEnv
+    from s2p_tpu_torch.rl import CriticSLAC, SACTrainer, TanhGaussianPolicy
+    from s2p_tpu_torch.samplers import GoalConditionedPathCollector, MdpPathCollector, PolicyAgent
+    from s2p_tpu_torch.testing.goal_env import PointRobotGoalEnv, TaskBatchTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ck.fused_mat_norm.launches = ck.fused_mat_norm_bwd.launches = 0
+    env = PointRobotGoalEnv(num_tasks=10, max_episode_steps=20, seed=0)
+    obs_dim, A = 4, 2
+    policy = TanhGaussianPolicy(obs_dim, SAC_HIDDEN, A, seed=0).cuda()
+    sac = SACTrainer(policy, CriticSLAC(obs_dim, A, SAC_HIDDEN, seed=1), seed=0, device="cuda")
+    collector = GoalConditionedPathCollector(env, PolicyAgent(policy, seed=0))
+    her = ObsDictRelabelingBuffer(GOAL_BUFFER, env, fraction_goals_rollout_goals=0.2)
+    collector.collect_new_paths(20, 20, discard_incomplete_paths=False)  # warm-up
+    t0 = time.perf_counter()
+    for path in collector.collect_new_paths(20, GOAL_ENV_STEPS, discard_incomplete_paths=False):
+        her.add_path(path)
+    env_s = time.perf_counter() - t0
+    if len(her) != GOAL_ENV_STEPS:
+        fail(f"goal: the HER buffer holds {len(her)} rows, expected {GOAL_ENV_STEPS}")
+    rs = np.random.RandomState(240)
+    batch = her.random_batch(SAC_BATCH, rs)
+    achieved = batch["next_observations"][:, :2]  # the next position is the achieved goal
+    want = env.compute_rewards(achieved, batch["resampled_goals"]).reshape(-1, 1)
+    if batch["observations"].shape != (SAC_BATCH, obs_dim) or not np.array_equal(
+            batch["rewards"], want):
+        fail("goal: the relabelled batch's rewards are not the env's for its goals")
+
+    pick = lambda out, key: {n: r[key] for n, r in out.items()}  # noqa: E731
+    draws = dict(pi=rs.randn(SAC_BATCH, A), next=rs.randn(SAC_BATCH, A))
+    out = {}
+    for name, device, dtype in PARITY_RUNS:
+        dtype = getattr(torch, dtype)
+        tr = SACTrainer(TanhGaussianPolicy(obs_dim, SAC_HIDDEN, A, seed=3).to(dtype),
+                        CriticSLAC(obs_dim, A, SAC_HIDDEN, seed=4).to(dtype), seed=0, device=device)
+        r = dict(metrics={k: v.item() for k, v in tr.train(batch, draws=draws).items()})
+        r["critic_grad"] = _f64((k, p.grad) for k, p in tr.critic.named_parameters()
+                                if p.grad is not None)
+        out[name] = r
+    hold_to_f64("goal SAC step on a HER batch, metrics", pick(out, "metrics"), "metric")
+    hold_to_f64("goal SAC step on a HER batch, critic gradients", pick(out, "critic_grad"), "grad")
+
+    batches = [her.random_batch(SAC_BATCH, rs) for _ in range(GOAL_SAC_STEPS + 2)]
+    for b in batches[:2]:
+        sac.train(b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[2:]:
+        metrics = sac.train(b)
+    torch.cuda.synchronize()
+    sac_s = time.perf_counter() - t0
+    if not all(torch.isfinite(v).all() for v in metrics.values()):
+        fail(f"goal SAC: non-finite metrics {metrics}")
+
+    point = PointRobotEnv(num_tasks=10, max_episode_steps=20, seed=1)
+    flat = TanhGaussianPolicy(2, SAC_HIDDEN, A, seed=5).cuda()
+    meta_sac = SACTrainer(flat, CriticSLAC(2, A, SAC_HIDDEN, seed=6), seed=1, device="cuda")
+    mtb = MultiTaskReplayBuffer(GOAL_BUFFER, point, point.get_all_task_idx(), device="cuda")
+    meta_collector = MdpPathCollector(point, PolicyAgent(flat, seed=1))
+    trainer = TaskBatchTrainer(meta_sac)
+    algo = MetaRLAlgorithm(point, trainer, mtb,
+                           lambda task: meta_collector.collect_new_paths(20, 20, False),
+                           point.get_all_task_idx(), num_iterations=META_ITERS,
+                           num_tasks_per_itr=10, num_train_steps_per_itr=META_TRAIN_STEPS,
+                           meta_batch=META_TASKS, batch_size=META_BATCH, seed=2)
+    t0 = time.perf_counter()
+    algo.train()
+    torch.cuda.synchronize()
+    meta_s = time.perf_counter() - t0
+    meta_env = sum(mtb.num_steps_can_sample(t) for t in point.get_all_task_idx())
+    launches = dict(launches=ck.fused_mat_norm.launches, bwd_launches=ck.fused_mat_norm_bwd.launches)
+    if meta_env != META_ITERS * 10 * 20 or trainer.n_train_calls != META_ITERS * META_TRAIN_STEPS:
+        fail(f"meta loop: {meta_env} env steps, {trainer.n_train_calls} SAC steps")
+    if not np.isfinite(list(meta_sac.get_diagnostics().values())).all():
+        fail(f"meta loop: non-finite diagnostics {meta_sac.get_diagnostics()}")
+    if launches["launches"] or launches["bwd_launches"]:
+        fail(f"the goal/multitask path launched the MAT-norm kernels: {launches}")
+    res = dict(launches, env_sps=GOAL_ENV_STEPS / env_s, sac_sps=GOAL_SAC_STEPS / sac_s,
+               meta_s=meta_s)
+    print(f"goal (point robot, goal-conditioned collection, TanhGaussianPolicy 256 x 2 on the "
+          f"card): {GOAL_ENV_STEPS} env steps in {env_s:.2f} s, {res['env_sps']:.1f} env steps/sec; "
+          f"SAC 256 x 2 on relabelled HER batches of {SAC_BATCH}: {GOAL_SAC_STEPS} steps in "
+          f"{sac_s:.2f} s, {res['sac_sps']:.1f} SAC steps/sec; meta loop: {META_ITERS} iterations "
+          f"of 10 tasks x 20 env steps then {META_TRAIN_STEPS} SAC steps on {META_TASKS} tasks x "
+          f"{META_BATCH} rows ({meta_env} env steps, {trainer.n_train_calls} SAC steps) in "
+          f"{meta_s:.2f} s; policy loss {meta_sac.get_diagnostics()['policy_loss']:.4f} on {card}")
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -3381,19 +3758,31 @@ def main() -> None:
     collection = phase_collect(ck, card, args.profile)
     print(f"phase 22: {time.time() - t0:.1f} s")
 
+    # phase 23: the CURL/RAD pixel path on phase 11's frames, a main path
+    t0 = time.time()
+    pixel = phase_pixel_rl(ck, card, generated_frames, args.profile)
+    print(f"phase 23: {time.time() - t0:.1f} s")
+
+    # phase 24: the goal-conditioned and multitask path, a main path
+    t0 = time.time()
+    goal = phase_goal_multitask(ck, card)
+    print(f"phase 24: {time.time() - t0:.1f} s")
+
     by_path = dict(serving=serving["launches"], training=training["fwd"], bridge=bridge,
                    gb_int8=gb_int8, slac_pretrain=pretrain["launches"], slac_iql=iql["launches"],
                    cql_slac=cql["launches"], eval_metrics=evals["launches"],
                    rl_loop=rl["launches"], dp_nccl=dp_nccl["fwd"], dp_gloo=dp_gloo["fwd"],
                    tp=tp, dp_rl_nccl=dp_rl["launches"]["fwd"],
-                   dp_rl_gloo=dp_rl_gloo["launches"][0], collection=collection["launches"])
+                   dp_rl_gloo=dp_rl_gloo["launches"][0], collection=collection["launches"],
+                   pixel_rl=pixel["launches"], goal_multitask=goal["launches"])
     bwd_by_path = dict(serving=0, training=training["bwd"], bridge=0, gb_int8=0,
                        slac_pretrain=pretrain["bwd_launches"], slac_iql=iql["bwd_launches"],
                        cql_slac=cql["bwd_launches"], eval_metrics=evals["bwd_launches"],
                        rl_loop=rl["bwd_launches"], dp_nccl=dp_nccl["bwd"],
                        dp_gloo=dp_gloo["bwd"], tp=0, dp_rl_nccl=dp_rl["launches"]["bwd"],
                        dp_rl_gloo=dp_rl_gloo["launches"][1],
-                       collection=collection["bwd_launches"])
+                       collection=collection["bwd_launches"], pixel_rl=pixel["bwd_launches"],
+                       goal_multitask=goal["bwd_launches"])
     fwd_record = dict(
         name="fused_mat_norm", route="cuda", source="s2p_tpu_torch/csrc/fused_mat_norm.cu",
         replaces="s2p_tpu/gan/pallas_kernels.py:49", launches=sum(by_path.values()),

@@ -5,8 +5,8 @@ flax ``Dense`` kernels are ``(in, out)`` where torch's ``Linear`` weight is
 ``(out, in)``; conv kernels ``(kh, kw, in, out)`` where torch's are
 ``(out, in, kh, kw)``; ``ConvTranspose2dTorch`` kernels (modules named
 ``deconv*``) ``(kh, kw, in, out)``, un-flipped, where torch's are ``(in,
-out, kh, kw)``; the ``scale`` of a LayerNorm or GroupNorm (modules named
-``layer_norm*`` or ``norm*``) is torch's ``weight``. Module paths map one
+out, kh, kw)``; the ``scale`` of a LayerNorm or GroupNorm is torch's
+``weight`` (the one 1-D weight). Module paths map one
 to one (``qf1/fc0`` ↔ ``qf1.fc0``).
 """
 
@@ -57,7 +57,7 @@ def jax_dense_tree_from_state_dict(sd: Mapping) -> dict:
         arr = v.detach().float().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
         *path, leaf = k.split(".")
         module = path[-1] if path else ""
-        if leaf == "weight" and module.startswith(("layer_norm", "norm")):
+        if leaf == "weight" and arr.ndim == 1:
             leaf = "scale"
         elif leaf == "weight":
             leaf, arr = "kernel", _kernel_to_flax(module, arr)

@@ -1,5 +1,6 @@
 """The offline-RL networks and trainers (the port of ``s2p_tpu/rl``'s
-policies, critics, samplers, IQL, SAC, CQL and the VAE policy)."""
+policies, critics, samplers, IQL, SAC, CQL, the VAE policy and the CURL
+pixel encoders)."""
 
 from s2p_tpu_torch.rl.policies import (
     GaussianPolicy,
@@ -26,6 +27,17 @@ from s2p_tpu_torch.rl.vae_policy import (
     VAEPolicy,
     elbo_loss,
     state_dict_from_jax_vae_params,
+)
+from s2p_tpu_torch.rl.encoders import (
+    CURL,
+    EncoderCritic,
+    EncoderQfunction,
+    EncoderVFunction,
+    PixelEncoder,
+    TanhGaussianPolicyWithEncoder,
+    curl_loss,
+    jax_encoder_params_from_state_dict,
+    state_dict_from_jax_encoder_params,
 )
 
 __all__ = [
@@ -55,4 +67,13 @@ __all__ = [
     "VAEPolicy",
     "elbo_loss",
     "state_dict_from_jax_vae_params",
+    "CURL",
+    "EncoderCritic",
+    "EncoderQfunction",
+    "EncoderVFunction",
+    "PixelEncoder",
+    "TanhGaussianPolicyWithEncoder",
+    "curl_loss",
+    "jax_encoder_params_from_state_dict",
+    "state_dict_from_jax_encoder_params",
 ]

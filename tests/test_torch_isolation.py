@@ -69,7 +69,13 @@ def test_port_imports_nothing_of_jax():
             "s2p_tpu_torch.utils.plotting", "s2p_tpu_torch.utils.pyutil",
             "s2p_tpu_torch.utils.io", "s2p_tpu_torch.utils.exploration",
             "s2p_tpu_torch.testing.debug_util", "s2p_tpu_torch.testing.gan_dp_worker",
-            "s2p_tpu_torch.testing.tp_worker"
+            "s2p_tpu_torch.testing.tp_worker", "s2p_tpu_torch.nn.augmentations",
+            "s2p_tpu_torch.rl.encoders", "s2p_tpu_torch.nn.misc_nets",
+            "s2p_tpu_torch.data.loaders", "s2p_tpu_torch.data.her_buffer",
+            "s2p_tpu_torch.data.multitask_buffer", "s2p_tpu_torch.envs.stacks",
+            "s2p_tpu_torch.envs.extra_wrappers", "s2p_tpu_torch.envs.image_env",
+            "s2p_tpu_torch.envs.multitask", "s2p_tpu_torch.samplers.extra_collectors",
+            "s2p_tpu_torch.testing.goal_env"
             } <= set(report["modules"])
 
 
