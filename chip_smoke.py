@@ -62,7 +62,10 @@ contiguous as the module path passes them) and times it there. Phases 3
 and 6 also hold both kernels at the batches of phase 20's paths, whose
 launch plans differ from phase 8's: the 100px chain at 8 a rank (bf16 and
 f32) and at 2 a rank (f32, 20b's f32 step), and the forward at the serving
-shapes at batch 4 (20c, f32).
+shapes at batch 4 (20c, f32); and at phase 25's ranks' shapes: the dry
+run's GAN generator (32px, ngf 8, three up-blocks) at its 2 rows a rank,
+f32, forward and backward, and its TP generator (32px, ngf 32) at each
+TP world's batch of 2·world, f32, forward.
 
 9. world model, card vs CPU: the full-width cheetah ensemble (obs 17, act
    6, E 7, hidden 256 × 3, the rollout CLI's defaults; seeded weights) in
@@ -243,7 +246,9 @@ shapes at batch 4 (20c, f32).
     ``nn.augmentations`` on the card against the CPU on the same draws
     (batch 128; crop, translate, cutout, flip, rotation and no-aug
     bit-equal; grayscale, the random convolution and the colour jitter
-    within 1 uint8 step on ≤ 1% of the values), with its time a call.
+    within 1 uint8 step on ≤ 1% of the values), with its time a call;
+    grayscale (RGB only, as in JAX) runs on the first frame and must raise
+    ``ValueError`` on the whole 9-channel stack on both devices.
     (b) one f32 step (TF32 off) at full width (encoder feature 50, 4 layers
     of 32 filters, fc fan-in 39,200; heads 1024 x 2; action 6) on 16 rows of
     84px crops, on the card and on the CPU in f32 and f64 (the encoders'
@@ -263,6 +268,25 @@ shapes at batch 4 (20c, f32).
     ``MultiTaskReplayBuffer`` (3 iterations of 10 tasks x 20 env steps and
     20 SAC steps on 4 tasks x 64 rows). Env steps/sec and SAC steps/sec;
     no MAT-norm launch.
+25. the dry run (``s2p_tpu_torch.cli.dryrun``, the port of
+    ``__graft_entry__.py``; a main path each). (a) ``entry()`` on the card:
+    the full-width generator's f32 forward (64px, ngf 64, batch 8, TF32
+    off) on seeded inputs launches 13 MAT-norm kernels a call (counts reset
+    just before); each norm's kernel output against the plain version on
+    the same inputs (1e-5), the forward against the same forward with the
+    plain norm on the card and on the CPU (5e-3); ms a call of both.
+    (b) ``dryrun_multichip(2)`` and (c) ``dryrun_multichip(4)``: gloo ranks
+    sharing the card run every leg of the JAX dry run (data-parallel GAN
+    step, IQL + SLAC step, GAN ``train_many_dp``, the state and image IQL
+    and CQL ``train_many_dp`` loops; at 4 ranks the TP generator on a 2 x 2
+    mesh within 1e-4 of its unsharded forward); with 2 or 4 cards these run
+    over NCCL, a card a rank; (d) with another count of cards (≥ 2),
+    ``dryrun_multichip(device_count)`` over NCCL. Each rank's MAT-norm
+    launches per leg come back in its record (2 forward and 1 backward per
+    G step, 2 TP forwards, none in the RL legs) and go into the kernels
+    line under ``dryrun``. Every trained leg leaves the ranks' parameters
+    bit-equal, and the state legs (on global batch indices and CQL draws
+    the ranks share out) within 1e-5 of one process's ``train_many``.
 
 ``--ab DIR`` runs phases 1 and 2, then times the MAT-norm kernels against
 those of the checkout in DIR in turns, then the two main paths end to end
@@ -552,15 +576,45 @@ def norm_shapes(gen) -> dict:
     return shapes
 
 
+def dryrun_worlds() -> list:
+    """(label, world) of phase 25's dry runs: 2 and 4 ranks, and with
+    another count of cards (≥ 2) one rank a card."""
+    import torch
+
+    worlds = [("25b", 2), ("25c", 4)]  # NCCL already where each rank has a card
+    if torch.cuda.device_count() >= 2 and torch.cuda.device_count() not in (2, 4):
+        worlds.append(("25d", torch.cuda.device_count()))
+    return worlds
+
+
+def dryrun_norm_shapes() -> dict:
+    """``norm_shapes`` of the dry run's two generators: the GAN legs' ("dryrun
+    gan") and the TP leg's ("dryrun tp")."""
+    from s2p_tpu_torch.gan import S2PGenerator
+    from s2p_tpu_torch.testing import dryrun_worker as dw
+
+    return {"dryrun gan": norm_shapes(S2PGenerator(STATE_DIM, image_size=dw.GAN_SIZE,
+                                                   device="cpu", **dw.GAN_G)),
+            "dryrun tp": norm_shapes(S2PGenerator(STATE_DIM, device="cpu", **dw.TP_G))}
+
+
 def parallel_norm_cases() -> tuple:
     """(path, batch, generator, dtype names, backward too) of the MAT norms
-    that phase 20's data- and tensor-parallel paths launch, whose launch
-    plans depend on the batch: each 20b rank's bf16 protocol steps and its
-    f32 step on the 100px ("train") chain, and each 20c rank's TP forward
-    (f32) on the serving shapes. 20a, at world 1, runs phase 8's batch."""
+    that the data- and tensor-parallel paths launch, whose launch plans
+    depend on the batch: each 20b rank's bf16 protocol steps and its f32
+    step on the 100px ("train") chain, each 20c rank's TP forward (f32) on
+    the serving shapes, and phase 25's ranks: the GAN legs' f32 steps at
+    ``dw.ROWS`` rows a rank and the TP leg's f32 forwards at each TP
+    world's batch. 20a, at world 1, runs phase 8's batch."""
+    from s2p_tpu_torch.testing import dryrun_worker as dw
+
+    tp_batches = sorted({dw.ROWS * world for _, world in dryrun_worlds()
+                         if "tp" in dw.leg_names(world)})
     return (("dp rank", TRAIN_BATCH // DP_WORLD, "train", ("bfloat16", "float32"), True),
             ("dp rank f32 step", DP_PARITY_BATCH // DP_WORLD, "train", ("float32",), True),
-            ("tp forward", TP_BATCH, "serving", ("float32",), False))
+            ("tp forward", TP_BATCH, "serving", ("float32",), False),
+            ("dryrun gan rank", dw.ROWS, "dryrun gan", ("float32",), True),
+            *(("dryrun tp", b, "dryrun tp", ("float32",), False) for b in tp_batches))
 
 
 def mat_norm_inputs(batch, size, C, dtype, strided, mean=0.0, seed=0):
@@ -664,7 +718,7 @@ def phase_kernels(ck, shapes, bridge_shapes) -> dict:
     print("mat_norm per 100px/ngf=64 bridge batch of 256 bf16 (13 norms): "
           + ", ".join(f"{k} {v:.4f}" for k, v in bridge.items()))
     for path, batch, gen, dtypes, _ in parallel_norm_cases():
-        path_shapes = dict(train=bridge_shapes, serving=shapes)[gen]
+        path_shapes = dict(train=bridge_shapes, serving=shapes, **dryrun_norm_shapes())[gen]
         for name in dtypes:
             plans = set()
             for size, C in sorted(path_shapes):
@@ -931,12 +985,13 @@ def phase_backward(ck, shapes) -> dict:
                              fwd_bound_ms=fwd_bound_ms).items():
                 if k in acc:
                     acc[k] += per_step * v
-    for path, batch, _, dtypes, backward in parallel_norm_cases():  # the 100px chain
+    for path, batch, gen, dtypes, backward in parallel_norm_cases():
+        path_shapes = dict(train=shapes, **dryrun_norm_shapes()).get(gen, {})
         for name in dtypes if backward else ():
             plans = {plan_label(check(batch, size, C, getattr(torch, name), strided))
-                     for size, C in sorted(shapes) for strided in (False, True)}
-            print(f"mat_norm_bwd {path} B={batch} {name}: {len(shapes)} shapes match plain "
-                  f"({len(plans)} plans: {', '.join(sorted(plans))})")
+                     for size, C in sorted(path_shapes) for strided in (False, True)}
+            print(f"mat_norm_bwd {path} B={batch} {name}: {len(path_shapes)} shapes match "
+                  f"plain ({len(plans)} plans: {', '.join(sorted(plans))})")
     scalar_paths = set()
     for dtype in (torch.bfloat16, torch.float32):  # the scalar path: C off the 32 grid
         for batch, size, C in SCALAR_SHAPES:
@@ -3425,6 +3480,19 @@ def phase_pixel_rl(ck, card: str, frames, profile_dir: str | None) -> dict:
             fail(f"pixel aug {name}: the card differs from the CPU on {share:.3g} of the values")
         if diff.max().item() > BRIDGE_MAX_DIFF or share > BRIDGE_DIFF_SHARE:
             fail(f"pixel aug {name}: {diff.max().item()} steps on {share:.3g} of the values")
+    # grayscale takes RGB only: the whole stack raises on the card as on the CPU
+    # (JAX's contraction with three weights raises on it)
+    raised = {}
+    for where, x in (("cpu", x_cpu), ("card", x_gpu)):
+        try:
+            aug.random_grayscale(None, x, 0.3)
+        except ValueError as err:
+            raised[where] = str(err)
+    print(f"pixel aug grayscale on the {x_cpu.shape[-1]}-channel stack: raises ValueError on "
+          f"{sorted(raised) or 'neither'} ({raised.get('card')})")
+    if set(raised) != {"cpu", "card"}:
+        fail(f"pixel aug grayscale: the {x_cpu.shape[-1]}-channel stack must raise ValueError "
+             f"on the card and the CPU; raised on {sorted(raised)}")
 
     # (b) one step in f32 on the card, f32 and f64 on the CPU
     g = torch.Generator().manual_seed(231)
@@ -3618,6 +3686,154 @@ def phase_goal_multitask(ck, card: str) -> dict:
     return res
 
 
+# -- phase 25: the dry run (cli.dryrun, the port of __graft_entry__.py) ------
+
+DRYRUN_SEED = 250
+
+
+@contextlib.contextmanager
+def generator_norm(fn):
+    """The generator's MAT norm replaced by ``fn`` (the plain version, or a
+    recorder) inside the block."""
+    from s2p_tpu_torch.gan import generator as gen_module
+
+    kernel = gen_module.fused_mat_norm
+    gen_module.fused_mat_norm = fn
+    try:
+        yield
+    finally:
+        gen_module.fused_mat_norm = kernel
+
+
+def phase_dryrun(ck, card: str, norms_per_step: int) -> dict:
+    """Phase 25: ``cli.dryrun``. (a) ``entry()`` on the card (the full-width
+    forward, f32, TF32 off) on seeded inputs: its launches in one call
+    (counts reset just before), each of its norms' kernel output against
+    the plain version on the same inputs (F32_TOL), and the whole forward
+    against the same forward with the plain norm on the card and on the
+    CPU (``entry(device="cpu")``, the same seed's weights) within
+    ROLLOUT_TOL; ms a call with the kernel and with the plain norm.
+    (b) ``dryrun_multichip(2)`` and (c) ``dryrun_multichip(4)``: gloo ranks
+    sharing this card (NCCL with a card a rank), every leg; (d) with another
+    count of cards (≥ 2), ``dryrun_multichip(device_count)`` over NCCL.
+    Each rank's launches per
+    leg come back in its record and must be the legs' norms: 2 forward and
+    1 backward a G step (GAN legs), 2 forwards (the TP leg's unsharded and
+    sharded ones), none in the RL legs. Every trained leg must leave the
+    ranks' parameters bit-equal (``dryrun_multichip`` raises otherwise) and
+    the state legs within ``dw.STATE_TOL`` of one process's ``train_many``
+    (the ranks raise otherwise). Phases 3 and 6 hold both kernels against
+    their plain versions at the ranks' shapes (``parallel_norm_cases``)."""
+    import numpy as np
+    import torch
+
+    from s2p_tpu_torch.cli import dryrun
+    from s2p_tpu_torch.testing import dryrun_worker as dw
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    fn, (state0, prev0) = dryrun.entry()
+    rs = np.random.RandomState(DRYRUN_SEED)
+    state = torch.from_numpy(rs.randn(*state0.shape).astype(np.float32))
+    prev = torch.from_numpy((rs.rand(*prev0.shape) * 2 - 1).astype(np.float32))
+    state_gpu, prev_gpu = state.cuda(), prev.cuda()
+    if not torch.isfinite(fn(state0, prev0)).all():  # JAX's example arguments
+        fail("dryrun entry: non-finite output on the zero example arguments")
+    torch.cuda.synchronize()
+    ck.fused_mat_norm.launches = ck.fused_mat_norm_bwd.launches = 0
+    out = fn(state_gpu, prev_gpu)
+    torch.cuda.synchronize()
+    entry_launches = ck.fused_mat_norm.launches
+    if entry_launches != norms_per_step or ck.fused_mat_norm_bwd.launches:
+        fail(f"dryrun entry: {entry_launches} forward and {ck.fused_mat_norm_bwd.launches} "
+             f"backward MAT-norm launches a call, expected {norms_per_step} and 0")
+    # the comparisons (their launches are not the path's)
+    seen = []
+
+    def record(x, g, b, *rest):
+        seen.append((x.clone(), g.clone(), b.clone()))
+        return ck.fused_mat_norm(x, g, b, *rest)
+
+    with generator_norm(record):
+        fn(state_gpu, prev_gpu)
+    norm_err = 0.0
+    for x, g, b in seen:
+        err = (ck.fused_mat_norm(x, g, b) - ck.fused_mat_norm_plain(x, g, b)).abs().max().item()
+        norm_err = max(norm_err, err)
+    with generator_norm(ck.fused_mat_norm_plain):
+        out_plain = fn(state_gpu, prev_gpu)
+        plain_ms = time_ms(lambda: fn(state_gpu, prev_gpu))
+    ms = time_ms(lambda: fn(state_gpu, prev_gpu))
+    fn_cpu, _ = dryrun.entry(device="cpu")
+    out_cpu = fn_cpu(state, prev)
+    vs_plain = (out - out_plain).abs().max().item()
+    vs_cpu = (out.cpu() - out_cpu).abs().max().item()
+    print(f"dryrun entry: S2PGenerator(64px, ngf 64) f32 forward at batch {state0.shape[0]}, "
+          f"{entry_launches} fused_mat_norm launches a call; its {len(seen)} norms kernel vs "
+          f"plain max |err| {norm_err:.3g} (limit {F32_TOL}); forward vs the plain norm on the "
+          f"card {vs_plain:.3g}, vs the CPU {vs_cpu:.3g} (limit {ROLLOUT_TOL}); {ms:.3f} ms a "
+          f"call, {plain_ms:.3f} ms with the plain norm, on {card}")
+    if len(seen) != norms_per_step or norm_err > F32_TOL:
+        fail(f"dryrun entry: {len(seen)} norms, kernel vs plain {norm_err:.3g}")
+    if out.shape != prev0.shape or not torch.isfinite(out).all():
+        fail(f"dryrun entry: bad output {tuple(out.shape)}")
+    if vs_plain > ROLLOUT_TOL or vs_cpu > ROLLOUT_TOL:
+        fail(f"dryrun entry: the forward is {vs_plain:.3g} from the plain norm's on the card "
+             f"and {vs_cpu:.3g} from the CPU's")
+
+    k_gan, k_tp = (sum(v.values()) for v in dryrun_norm_shapes().values())
+    expected = dict(gan=(2 * k_gan, k_gan), gan_dp_scan=(2 * k_gan * dw.GAN_DP_STEPS,
+                                                           k_gan * dw.GAN_DP_STEPS),
+                    tp=(2 * k_tp, 0))
+    worlds = dryrun_worlds()
+    launches = [entry_launches, 0]
+    runs = {}
+    for label, world in worlds:
+        t0 = time.time()
+        try:
+            res = dryrun.dryrun_multichip(world)
+        except RuntimeError as err:
+            fail(f"dryrun {label}: {err}")
+        wall = time.time() - t0
+        legs = dw.leg_names(world)
+        if [rec["name"] for rec in res["ranks"][0]["legs"]] != legs or len(res["lines"]) != len(
+                legs):
+            fail(f"dryrun {label}: legs {[rec['name'] for rec in res['ranks'][0]['legs']]}")
+        per_leg = {}
+        for rank in res["ranks"]:
+            for rec in rank["legs"]:
+                got, want = tuple(rec["launches"]), expected.get(rec["name"], (0, 0))
+                if got != want:
+                    fail(f"dryrun {label} rank {rank['rank']} {rec['name']}: MAT-norm launches "
+                         f"{got}, expected {want}")
+                launches[0] += got[0]
+                launches[1] += got[1]
+                per_leg[rec["name"]] = max(per_leg.get(rec["name"], 0.0), rec["seconds"])
+        if "tp" in legs:
+            err = max(leg["metrics"]["max_abs_err"] for rank in res["ranks"]
+                      for leg in rank["legs"] if leg["name"] == "tp")
+            if not err < dw.TP_TOL:
+                fail(f"dryrun {label}: TP max |err| {err}")
+        state = next(rec["metrics"] for rec in res["ranks"][0]["legs"]
+                     if rec["name"] == "state_rl")
+        state_err = max(state["err_iql"], state["err_cql"])
+        if not state_err <= dw.STATE_TOL:
+            fail(f"dryrun {label}: the state legs are {state_err} from one process's")
+        runs[label] = dict(world=world, backend=res["ranks"][0]["backend"], wall_s=wall,
+                           leg_s=per_leg, state_err=state_err)
+        trained = sum(rec["digest"] is not None for rec in res["ranks"][0]["legs"])
+        print(f"phase {label}: dryrun_multichip({world}) over {runs[label]['backend']}, "
+              f"{len(legs)} legs ok in {wall:.1f} s wall (spawn included); slowest rank per leg "
+              + ", ".join(f"{k} {v:.2f} s" for k, v in per_leg.items())
+              + f"; parameters bit-equal on every rank after its {trained} trained legs; state "
+              f"legs vs one process max |Δ| {state_err:.3g} (limit {dw.STATE_TOL}); on {card}")
+    print(f"dryrun launches: entry {entry_launches}, the dry runs {launches[0] - entry_launches} "
+          f"forward and {launches[1]} backward over their ranks")
+    return dict(fwd=launches[0], bwd=launches[1], entry_ms=ms, entry_plain_ms=plain_ms,
+                runs=runs)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -3768,13 +3984,20 @@ def main() -> None:
     goal = phase_goal_multitask(ck, card)
     print(f"phase 24: {time.time() - t0:.1f} s")
 
+    # phase 25: the dry run (the port of __graft_entry__.py): entry() on the
+    # card, dryrun_multichip(2) and (4) on gloo ranks sharing it (NCCL, a card a rank)
+    t0 = time.time()
+    dry = phase_dryrun(ck, card, sum(norm_shapes(gen_cpu).values()))
+    print(f"phase 25: {time.time() - t0:.1f} s")
+
     by_path = dict(serving=serving["launches"], training=training["fwd"], bridge=bridge,
                    gb_int8=gb_int8, slac_pretrain=pretrain["launches"], slac_iql=iql["launches"],
                    cql_slac=cql["launches"], eval_metrics=evals["launches"],
                    rl_loop=rl["launches"], dp_nccl=dp_nccl["fwd"], dp_gloo=dp_gloo["fwd"],
                    tp=tp, dp_rl_nccl=dp_rl["launches"]["fwd"],
                    dp_rl_gloo=dp_rl_gloo["launches"][0], collection=collection["launches"],
-                   pixel_rl=pixel["launches"], goal_multitask=goal["launches"])
+                   pixel_rl=pixel["launches"], goal_multitask=goal["launches"],
+                   dryrun=dry["fwd"])
     bwd_by_path = dict(serving=0, training=training["bwd"], bridge=0, gb_int8=0,
                        slac_pretrain=pretrain["bwd_launches"], slac_iql=iql["bwd_launches"],
                        cql_slac=cql["bwd_launches"], eval_metrics=evals["bwd_launches"],
@@ -3782,7 +4005,7 @@ def main() -> None:
                        dp_gloo=dp_gloo["bwd"], tp=0, dp_rl_nccl=dp_rl["launches"]["bwd"],
                        dp_rl_gloo=dp_rl_gloo["launches"][1],
                        collection=collection["bwd_launches"], pixel_rl=pixel["bwd_launches"],
-                       goal_multitask=goal["bwd_launches"])
+                       goal_multitask=goal["bwd_launches"], dryrun=dry["bwd"])
     fwd_record = dict(
         name="fused_mat_norm", route="cuda", source="s2p_tpu_torch/csrc/fused_mat_norm.cu",
         replaces="s2p_tpu/gan/pallas_kernels.py:49", launches=sum(by_path.values()),

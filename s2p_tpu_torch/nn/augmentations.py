@@ -33,6 +33,10 @@ _GRAY_W = (0.2989, 0.587, 0.114)
 
 
 def _randint(generator, low: int, high: int, shape, device) -> torch.Tensor:
+    """Integers from [low, high); ``low`` itself, with no draw, where the
+    range is empty (``high ≤ low``), as ``jax.random.randint`` gives."""
+    if high <= low:
+        return torch.full(shape, low, dtype=torch.int64, device=device)
     return torch.randint(low, high, shape, generator=generator, device=device)
 
 
@@ -59,6 +63,8 @@ def random_crop(generator: Optional[torch.Generator], imgs: torch.Tensor, out: i
     """An ``out`` × ``out`` window per image at offsets ``h``, ``w`` drawn
     from [0, H − out] and [0, W − out]."""
     B, H, W, _ = imgs.shape
+    if out > H or out > W:
+        raise ValueError(f"crop {out} larger than the {H}x{W} images")
     dev = imgs.device
     h = _randint(generator, 0, H - out + 1, (B,), dev) if h is None else h.to(dev)
     w = _randint(generator, 0, W - out + 1, (B,), dev) if w is None else w.to(dev)
@@ -87,8 +93,12 @@ def random_translate(generator: Optional[torch.Generator], imgs: torch.Tensor, s
 
 
 def grayscale(imgs: torch.Tensor) -> torch.Tensor:
-    """Luma (0.2989, 0.587, 0.114) over three channels, in f32, replicated
-    to the three channels and cast back to the input's dtype."""
+    """Luma (0.2989, 0.587, 0.114) over the three channels of RGB images, in
+    f32, replicated to the three channels and cast back to the input's
+    dtype. Any other channel count (a frame stack) raises, as JAX's
+    contraction with three weights does."""
+    if imgs.shape[-1] != 3:
+        raise ValueError(f"grayscale takes 3 channels, got {imgs.shape[-1]}")
     f = imgs.float()
     g = f[..., 0] * _GRAY_W[0] + f[..., 1] * _GRAY_W[1] + f[..., 2] * _GRAY_W[2]
     return g[..., None].expand(f.shape).to(imgs.dtype)
@@ -106,7 +116,9 @@ def random_cutout(generator: Optional[torch.Generator], imgs: torch.Tensor, min_
                   w0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A box of side ``sizes`` ∈ [min_cut, max_cut) at ``h0`` ∈ [0, H −
     max_cut), ``w0`` ∈ [0, W − max_cut) per image, filled with zeros or
-    ``color`` ([B, C] or broadcastable to it)."""
+    ``color`` ([B, C] or broadcastable to it). An empty range gives its
+    lower end (``h0`` 0 where H ≤ max_cut), as ``jax.random.randint``
+    does."""
     B, H, W, C = imgs.shape
     dev = imgs.device
     sizes = _randint(generator, min_cut, max_cut, (B,), dev) if sizes is None else sizes.to(dev)
@@ -144,7 +156,10 @@ def random_rotation(generator: Optional[torch.Generator], imgs: torch.Tensor, p:
                     ) -> torch.Tensor:
     """A turn by ``rot`` ∈ {1, 2, 3} quarter turns (``rot90`` over H, W) with
     probability ``p``; square images."""
-    B, dev = imgs.shape[0], imgs.device
+    B, H, W, _ = imgs.shape
+    if H != W:
+        raise ValueError(f"rotation takes square images, got {H}x{W}")
+    dev = imgs.device
     mask = _bernoulli(generator, p, B, dev) if mask is None else mask.to(dev)
     rot = _randint(generator, 1, 4, (B,), dev) if rot is None else rot.to(dev)
     rots = torch.stack([imgs] + [torch.rot90(imgs, k, dims=(1, 2)) for k in (1, 2, 3)])

@@ -53,6 +53,19 @@ from s2p_tpu_torch.slac import SlacAlgorithm
 from s2p_tpu_torch.slac.convert import jax_latent_params_from_state_dict
 
 
+ROW_KEYS = ("observations", "actions", "rewards", "terminals", "next_observations")
+
+
+def state_buffer(rows: Dict[str, Any], device) -> SimpleReplayBuffer:
+    """A ``SimpleReplayBuffer`` on ``device`` holding ``rows`` (arrays keyed
+    as ``ROW_KEYS``), added one transition at a time."""
+    buf = SimpleReplayBuffer(len(rows["rewards"]), rows["observations"].shape[1],
+                             rows["actions"].shape[1], device=device)
+    for o, a, r, t, no in zip(*(rows[k] for k in ROW_KEYS)):
+        buf.add_sample(o, a, r, t, no)
+    return buf
+
+
 def make_slac(spec: Dict[str, Any], case: Dict[str, Any], group) -> SlacAlgorithm:
     slac = SlacAlgorithm(device="cpu", dp_group=group, **dict(spec["slac"],
                                                                 **case.get("slac", {})))
@@ -112,14 +125,9 @@ def run_inputs(spec, case, group, inputs, mesh=None) -> Dict[str, Any]:
             metrics = trainer.train(inputs["batch"], draws=inputs["draws"],
                                     latent_draws=inputs.get("latent_draws"))
     else:  # many
-        rows = case["rows"]
-        buf = SimpleReplayBuffer(len(rows["rewards"]), rows["observations"].shape[1],
-                                 rows["actions"].shape[1], device="cpu")
-        for o, a, r, t, no in zip(*(rows[k] for k in ("observations", "actions", "rewards",
-                                                       "terminals", "next_observations"))):
-            buf.add_sample(o, a, r, t, no)
         metrics = train_many_dp(trainer, mesh, case["num_steps"], case["batch_size"],
-                                buffer=buf, indices=inputs["indices"], draws=inputs["draws"])
+                                buffer=state_buffer(case["rows"], "cpu"),
+                                indices=inputs["indices"], draws=inputs["draws"])
     return report(trainer, None, metrics)
 
 

@@ -17,6 +17,7 @@ rank on the one card; there TF32 is off, for an f32 comparison).
 from __future__ import annotations
 
 import os
+from typing import Any, Dict
 
 import torch
 import torch.distributed as dist
@@ -27,6 +28,23 @@ from s2p_tpu_torch.parallel import MeshSpec, make_mesh, model_shard_params
 from s2p_tpu_torch.parallel.distributed import initialize_distributed
 
 
+def sharded_forward(mesh, gen: S2PGenerator, min_features: int, state, prev_image
+                    ) -> Dict[str, Any]:
+    """``gen`` sharded in place over ``mesh``'s model axis, and its forward on
+    the inputs (on the generator's device): the output on the CPU, the MAT-norm
+    kernel's launches in the forward, and the sharded layers' weight shapes
+    by name."""
+    gen = model_shard_params(mesh, gen, min_features)
+    device = next(gen.parameters()).device
+    state, prev = (torch.as_tensor(x, device=device) for x in (state, prev_image))
+    launches = cuda_kernels.fused_mat_norm.launches
+    with torch.no_grad():
+        out = gen(state, prev)
+    return dict(out=out.cpu(), launches=cuda_kernels.fused_mat_norm.launches - launches,
+                sharded={name: tuple(m.weight.shape) for name, m in gen.named_modules()
+                         if hasattr(m, "model_shard")})
+
+
 def run(rank: int, world: int, init_method: str, spec_file: str, out_dir: str) -> None:
     torch.set_num_threads(2)
     torch.backends.cudnn.allow_tf32 = False
@@ -34,16 +52,9 @@ def run(rank: int, world: int, init_method: str, spec_file: str, out_dir: str) -
     initialize_distributed(init_method, world, rank, backend="gloo")
     mesh = make_mesh(MeshSpec(data=1, model=world))
     spec = torch.load(spec_file, weights_only=False)
-    device = torch.device(spec["device"])
     gen = S2PGenerator(spec["state_dim"], device="cpu", **spec["kwargs"])
     gen.load_state_dict(spec["g"], strict=True)
-    gen = model_shard_params(mesh, gen.to(device), spec["min_features"])
-    state, prev = (torch.as_tensor(spec[k], device=device) for k in ("state", "prev_image"))
-    launches = cuda_kernels.fused_mat_norm.launches
-    with torch.no_grad():
-        out = gen(state, prev)
-    torch.save(dict(out=out.cpu(), launches=cuda_kernels.fused_mat_norm.launches - launches,
-                    sharded={name: tuple(m.weight.shape) for name, m in gen.named_modules()
-                             if hasattr(m, "model_shard")}),
+    torch.save(sharded_forward(mesh, gen.to(spec["device"]), spec["min_features"],
+                               spec["state"], spec["prev_image"]),
                os.path.join(out_dir, f"rank{rank}.pt"))
     dist.destroy_process_group()

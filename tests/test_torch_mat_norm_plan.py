@@ -4,7 +4,9 @@ every norm shape of the main paths (the 64px/ngf=64 generator at batch 256
 serving and at 4 in the tensor-parallel forward, the 100px/ngf=64 one at
 batch 16 training, at 8 and 2 a rank in data-parallel training and at
 batch 256 in the image bridge), in bf16 and f32, forward and backward (the bridge runs only
-the forward; its backward plans are held to the same rule); the streaming
+the forward; its backward plans are held to the same rule); the dry run's
+ranks' f32 shapes (``cli.dryrun``: its GAN generator at 2 rows a rank, its
+tensor-parallel one at batch 8); the streaming
 path at 256²; and the choice of the scalar path from channel counts and
 alignment. The kernels themselves are held to their plain versions on the
 card by chip_smoke.py."""
@@ -20,12 +22,12 @@ from s2p_tpu_torch.gan.generator import S2PGenerator
 SMEM_PER_CTA = 232_448  # shared memory one CTA may use on Hopper
 
 
-def norm_shapes(image_size: int, ngf: int = 64) -> list:
+def norm_shapes(image_size: int, ngf: int = 64, n_up: int = 4) -> list:
     """(H, C) of every MAT norm of one generator step, from S2PGenerator's
     resolution chain and block widths (norm_0 on the block input, norm_1 on
     min(in, out), norm_s on the input when the width changes), as
     chip_smoke.norm_shapes takes them, without building the weights."""
-    dims = SimpleNamespace(image_size=image_size, ngf=ngf, n_up=4)
+    dims = SimpleNamespace(image_size=image_size, ngf=ngf, n_up=n_up)
     shapes = set()
     for size, (c_in, c_out) in zip(S2PGenerator.sizes.fget(dims),
                                    S2PGenerator.block_channels.fget(dims)):
@@ -40,6 +42,12 @@ MAIN_PATHS = [(256, 64, h, c) for h, c in norm_shapes(64)] + \
              [(4, 64, h, c) for h, c in norm_shapes(64)]
 
 
+# the dry run's ranks (testing/dryrun_worker.py: GAN_G at ROWS a rank, TP_G
+# at ROWS·4), f32 only
+DRYRUN_PATHS = [(2, 32, h, c) for h, c in norm_shapes(32, 8, 3)] + \
+               [(8, 32, h, c) for h, c in norm_shapes(32, 32, 2)]
+
+
 def test_main_path_shapes_are_the_generators():
     assert norm_shapes(64) == [(4, 512), (8, 256), (8, 512), (16, 128), (16, 256), (32, 64),
                                (32, 128), (64, 64)]
@@ -52,12 +60,24 @@ def test_main_path_shapes_are_the_generators():
 @pytest.mark.parametrize("batch,image_size,H,C", MAIN_PATHS,
                          ids=[f"{s}px-B{b}-{h}x{c}" for b, s, h, c in MAIN_PATHS])
 def test_plan_at_main_path_shape(batch, image_size, H, C, dtype, direction):
+    check_plan(batch, H, C, dtype, direction)
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+@pytest.mark.parametrize("batch,image_size,H,C", DRYRUN_PATHS,
+                         ids=[f"{s}px-B{b}-{h}x{c}" for b, s, h, c in DRYRUN_PATHS])
+def test_plan_at_dryrun_shape(batch, image_size, H, C, direction):
+    check_plan(batch, H, C, torch.float32, direction)
+
+
+def check_plan(batch, H, C, dtype, direction):
     hw = H * H
     plan = ck.mat_norm_plan(batch, hw, C, dtype, direction, True)
     arrays = 1 if direction == "forward" else 2
     # a launch small enough that its re-reads meet L2 streams; every other fits
     small = arrays * batch * hw * C * dtype.itemsize <= ck.STREAM_BYTES
-    assert plan.path == ("streaming" if small else "resident") and plan.vec
+    # every main-path width is on the 32 grid; the dry run's 8 and 16 are scalar
+    assert plan.path == ("streaming" if small else "resident") and plan.vec == (C % 32 == 0)
     assert plan.cluster in (1, 2, 4, 8)
     assert plan.grid == batch * -(-C // plan.tile_c) * plan.cluster
     assert plan.grid % plan.cluster == 0
@@ -66,7 +86,10 @@ def test_plan_at_main_path_shape(batch, image_size, H, C, dtype, direction):
     assert small or slice_bytes <= ck.RESIDENT_BYTES
     assert plan.smem == (0 if small else slice_bytes) + ck.SCRATCH_BYTES_PER_CHANNEL * plan.tile_c
     assert plan.smem <= SMEM_PER_CTA
-    assert C % plan.tile_c == 0 and plan.tile_c * dtype.itemsize // 16 in (2, 4, 8)
+    if plan.vec:
+        assert C % plan.tile_c == 0 and plan.tile_c * dtype.itemsize // 16 in (2, 4, 8)
+    else:
+        assert plan.tile_c == 32
     if H in (50, 100) and batch >= 16:  # at batch 16 (image, tile) groups alone would give
         # 32-64 CTAs; at batch 256 they give enough, but a whole 50² or 100² slice does not fit
         assert plan.grid >= 256 and plan.cluster > 1
