@@ -25,6 +25,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from s2p_tpu_torch.utils.profiling import annotate
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
@@ -51,7 +53,9 @@ def generate_images_for_dataset(dataset: dict, gen: torch.nn.Module, batch_size:
     tail padded to one batch shape), on ``gen``'s device; with ``bf16`` a
     bfloat16 copy of ``gen`` runs. Batches are dispatched without waiting
     for the card; each result is copied without blocking into one pinned
-    host buffer, which is read after a single synchronisation."""
+    host buffer, which is read after a single synchronisation. Spans:
+    ``s2p.bridge.stage`` (host rows to device inputs), ``s2p.bridge.d2h``
+    (uint8 frames into the pinned buffer), ``s2p.bridge.sync``."""
     imgs = np.asarray(dataset["image_observations"])
     states = np.asarray(dataset["next_observations"], np.float32)
     n = len(states)
@@ -65,17 +69,21 @@ def generate_images_for_dataset(dataset: dict, gen: torch.nn.Module, batch_size:
                       pin_memory=device.type == "cuda")
     for i in range(n_batches):
         lo = i * batch_size
-        s, p = states[lo:lo + batch_size], imgs[lo:lo + batch_size]
-        pad = batch_size - len(s)
-        if pad:
-            s = np.concatenate([s, np.zeros((pad,) + s.shape[1:], s.dtype)])
-            p = np.concatenate([p, np.zeros((pad,) + p.shape[1:], p.dtype)])
-        state = torch.from_numpy(s).to(device, non_blocking=True).to(dtype)
-        prev = torch.from_numpy(p).to(device, non_blocking=True).to(dtype) / 127.5 - 1.0
-        frames = ((gen(state, prev).float() + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
-        out[lo:lo + batch_size].copy_(frames, non_blocking=True)
+        with annotate("s2p.bridge.stage"):
+            s, p = states[lo:lo + batch_size], imgs[lo:lo + batch_size]
+            pad = batch_size - len(s)
+            if pad:
+                s = np.concatenate([s, np.zeros((pad,) + s.shape[1:], s.dtype)])
+                p = np.concatenate([p, np.zeros((pad,) + p.shape[1:], p.dtype)])
+            state = torch.from_numpy(s).to(device, non_blocking=True).to(dtype)
+            prev = torch.from_numpy(p).to(device, non_blocking=True).to(dtype) / 127.5 - 1.0
+        frames = gen(state, prev)
+        with annotate("s2p.bridge.d2h"):
+            frames = ((frames.float() + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
+            out[lo:lo + batch_size].copy_(frames, non_blocking=True)
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        with annotate("s2p.bridge.sync"):
+            torch.cuda.synchronize(device)
     return out[:n].numpy()
 
 

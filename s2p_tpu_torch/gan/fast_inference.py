@@ -17,6 +17,9 @@ Tensors here are NCHW in channels_last memory, as in ``generator.py``. The
 fast path runs an ``S2PGenerator``'s own layers, except that each MAT norm
 reads operands that ``fuse_fast_params`` precomputes from the same weights.
 The modulated instance norm runs through the fused CUDA kernel on the card.
+The spans are the module path's (``s2p.gen.*``, ``s2p.mat.*``), plus
+``s2p.fast.cmap`` around each constant-map assembly and ``s2p.fast.fuse``
+around the fusion of the operands.
 
 ``gb_int8`` (opt-in) runs each γ‖β conv on int8 operands: per-output-channel
 int8 weights quantized once by ``fuse_fast_params(..., gb_int8=True)``,
@@ -34,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from s2p_tpu_torch.gan.generator import CL, S2PGenerator, mat_norm_nchw, upsample_nearest
+from s2p_tpu_torch.utils.profiling import annotate
 
 Params = Dict[str, Any]
 NORMS = ("norm_0", "norm_1", "norm_s")
@@ -69,18 +73,19 @@ def _add_const_map(h: torch.Tensor, t: torch.Tensor,
     updated through integer slices, so only border pixels are touched (the
     JAX package builds 0/1 masks that XLA fuses into one pass; in eager
     PyTorch each mask product would be a pass over the whole map)."""
-    full, top, bot, left, right, c00, c02, c20, c22 = t.unbind(1)  # each [B, F]
-    if bias is not None:
-        full = full + bias
-    h += full[:, :, None, None]
-    h[:, :, 0] -= top[:, :, None]
-    h[:, :, -1] -= bot[:, :, None]
-    h[:, :, :, 0] -= left[:, :, None]
-    h[:, :, :, -1] -= right[:, :, None]
-    h[:, :, 0, 0] += c00
-    h[:, :, 0, -1] += c02
-    h[:, :, -1, 0] += c20
-    h[:, :, -1, -1] += c22
+    with annotate("s2p.fast.cmap"):
+        full, top, bot, left, right, c00, c02, c20, c22 = t.unbind(1)  # each [B, F]
+        if bias is not None:
+            full = full + bias
+        h += full[:, :, None, None]
+        h[:, :, 0] -= top[:, :, None]
+        h[:, :, -1] -= bot[:, :, None]
+        h[:, :, :, 0] -= left[:, :, None]
+        h[:, :, :, -1] -= right[:, :, None]
+        h[:, :, 0, 0] += c00
+        h[:, :, 0, -1] += c02
+        h[:, :, -1, 0] += c20
+        h[:, :, -1, -1] += c22
     return h
 
 
@@ -160,23 +165,24 @@ def fuse_fast_params(gen: S2PGenerator, block_level: bool = True,
     modulation; the float operands stay, so the float path is unchanged."""
     if gen.mat_mode != "mat":
         raise ValueError(f"the fast path specializes the MAT layout, not {gen.mat_mode!r}")
-    S = gen.state_fc1.weight.shape[0]
-    blocks: List[Params] = []
-    all_terms: List[torch.Tensor] = []
-    for i in range(len(gen.sizes)):
-        block = getattr(gen, f"block_{i}")
-        norms = [n for n in NORMS if hasattr(block, n)]
-        bp: Params = dict(norms=norms, **{n: _norm_params(getattr(block, n), S, gb_int8)
-                                          for n in norms})
-        if block_level:
-            bp["shared_cat"] = dict(
-                weight=_cl(torch.cat([bp[n]["k_img"] for n in norms], 0)),
-                bias=torch.cat([bp[n]["mlp_shared_bias"] for n in norms], 0))
-            all_terms.extend(bp[n]["cmap_terms"] for n in norms)
-        blocks.append(bp)
-    p: Params = dict(blocks=blocks)
-    if all_terms:
-        p["cmap_terms_all"] = torch.cat(all_terms, -1)
+    with annotate("s2p.fast.fuse"):
+        S = gen.state_fc1.weight.shape[0]
+        blocks: List[Params] = []
+        all_terms: List[torch.Tensor] = []
+        for i in range(len(gen.sizes)):
+            block = getattr(gen, f"block_{i}")
+            norms = [n for n in NORMS if hasattr(block, n)]
+            bp: Params = dict(norms=norms, **{n: _norm_params(getattr(block, n), S, gb_int8)
+                                              for n in norms})
+            if block_level:
+                bp["shared_cat"] = dict(
+                    weight=_cl(torch.cat([bp[n]["k_img"] for n in norms], 0)),
+                    bias=torch.cat([bp[n]["mlp_shared_bias"] for n in norms], 0))
+                all_terms.extend(bp[n]["cmap_terms"] for n in norms)
+            blocks.append(bp)
+        p: Params = dict(blocks=blocks)
+        if all_terms:
+            p["cmap_terms_all"] = torch.cat(all_terms, -1)
     return p
 
 
@@ -220,13 +226,14 @@ def _modulate(x: torch.Tensor, h: torch.Tensor, p: Params, gb_int8: bool = False
     """γ‖β conv over the norm's hidden map ``h`` (on int8 operands with
     ``gb_int8``), then the modulated instance norm, with γ and β read in
     place as the conv output's two channel halves."""
-    if gb_int8:
-        if "mlp_gb_q" not in p:
-            raise ValueError("gb_int8=True needs the int8 operands: fuse the parameters with "
-                             "fuse_fast_params(gen, gb_int8=True)")
-        gb = _conv_gb_int8(h, p["mlp_gb_q"], p["mlp_gb"]["bias"])
-    else:
-        gb = _cl(F.conv2d(_cl(h), p["mlp_gb"]["weight"], p["mlp_gb"]["bias"], padding=1))
+    if gb_int8 and "mlp_gb_q" not in p:
+        raise ValueError("gb_int8=True needs the int8 operands: fuse the parameters with "
+                         "fuse_fast_params(gen, gb_int8=True)")
+    with annotate("s2p.mat.gb"):
+        if gb_int8:
+            gb = _conv_gb_int8(h, p["mlp_gb_q"], p["mlp_gb"]["bias"])
+        else:
+            gb = _cl(F.conv2d(_cl(h), p["mlp_gb"]["weight"], p["mlp_gb"]["bias"], padding=1))
     C = gb.shape[1] // 2
     return mat_norm_nchw(x, gb[:, :C], gb[:, C:])
 
@@ -235,9 +242,10 @@ def _mat_norm_fast(x: torch.Tensor, e: torch.Tensor, image_feat: torch.Tensor,
                    p: Params, gb_int8: bool = False) -> torch.Tensor:
     """MATNorm with the shared conv split: state half by the constant-map
     shortcut, image half as a real conv."""
-    h = F.conv2d(image_feat, p["k_img"], padding=1)
-    h = _add_const_map(h, _reduce_terms(e, p["cmap_terms"]), p["mlp_shared_bias"])
-    return _modulate(x, h.relu_(), p, gb_int8)
+    with annotate("s2p.mat.hidden"):
+        h = F.conv2d(image_feat, p["k_img"], padding=1)
+        h = _add_const_map(h, _reduce_terms(e, p["cmap_terms"]), p["mlp_shared_bias"]).relu_()
+    return _modulate(x, h, p, gb_int8)
 
 
 def _block_hidden_maps(image_feat: torch.Tensor, t_blk: torch.Tensor, p: Params,
@@ -245,10 +253,12 @@ def _block_hidden_maps(image_feat: torch.Tensor, t_blk: torch.Tensor, p: Params,
     """All of a block's hidden maps in one pass: ONE conv over
     ``image_feat`` plus the pre-reduced state terms ``t_blk``, split back
     per norm."""
-    sc = p["shared_cat"]
-    h = _add_const_map(F.conv2d(image_feat, sc["weight"], padding=1), t_blk, sc["bias"]).relu_()
-    widths = [p[n]["mlp_shared_bias"].shape[0] for n in norms]
-    return list(torch.split(h, widths, dim=1))
+    with annotate("s2p.mat.hidden"):
+        sc = p["shared_cat"]
+        h = _add_const_map(F.conv2d(image_feat, sc["weight"], padding=1), t_blk,
+                           sc["bias"]).relu_()
+        widths = [p[n]["mlp_shared_bias"].shape[0] for n in norms]
+        return list(torch.split(h, widths, dim=1))
 
 
 def _res_block_fast(x: torch.Tensor, e: torch.Tensor, image_feat: torch.Tensor,
@@ -280,27 +290,34 @@ def fast_apply(gen: S2PGenerator, params: Params, state: torch.Tensor,
     runs the γ‖β convs on int8 operands and needs ``params`` fused with
     ``gb_int8=True`` (else it raises: the JAX package would run the float
     path instead)."""
-    sizes = gen.sizes
-    enc_by_size = {f.shape[-1]: f for f in gen.img_enc(prev_image.permute(0, 3, 1, 2))}
-    e = gen.embed_state(state)
-    x = gen.seed_map(e)
-
-    # the whole network's state-side reduction in ONE matmul, sliced per block
-    t_all = _reduce_terms(e, params["cmap_terms_all"]) if "cmap_terms_all" in params else None
-    off = 0
-    for i, size in enumerate(sizes):
-        blk = params["blocks"][i]
-        t_blk = None
-        if t_all is not None and "shared_cat" in blk:
-            w = blk["shared_cat"]["weight"].shape[0]
-            t_blk = t_all[:, :, off:off + w]
-            off += w
-        x = _res_block_fast(x, e, enc_by_size[size], getattr(gen, f"block_{i}"), blk, t_blk,
-                            gb_int8)
-        if i < len(sizes) - 1:
-            x = upsample_nearest(x, sizes[i + 1])
-    x = gen.conv_img(F.leaky_relu(x, 0.2))
-    return torch.tanh(x).permute(0, 2, 3, 1)
+    with annotate("s2p.gen.forward"):
+        sizes = gen.sizes
+        with annotate("s2p.gen.encode"):
+            feats = gen.img_enc(prev_image.permute(0, 3, 1, 2))
+        enc_by_size = {f.shape[-1]: f for f in feats}
+        with annotate("s2p.gen.embed"):
+            e = gen.embed_state(state)
+            x = gen.seed_map(e)
+            # the whole network's state-side reduction in ONE matmul, sliced per block
+            t_all = (_reduce_terms(e, params["cmap_terms_all"]) if "cmap_terms_all" in params
+                     else None)
+        off = 0
+        for i, size in enumerate(sizes):
+            blk = params["blocks"][i]
+            t_blk = None
+            if t_all is not None and "shared_cat" in blk:
+                w = blk["shared_cat"]["weight"].shape[0]
+                t_blk = t_all[:, :, off:off + w]
+                off += w
+            with annotate(f"s2p.gen.block_{i}"):
+                x = _res_block_fast(x, e, enc_by_size[size], getattr(gen, f"block_{i}"), blk,
+                                    t_blk, gb_int8)
+            if i < len(sizes) - 1:
+                with annotate("s2p.gen.upsample"):
+                    x = upsample_nearest(x, sizes[i + 1])
+        with annotate("s2p.gen.head"):
+            x = torch.tanh(gen.conv_img(F.leaky_relu(x, 0.2)))
+        return x.permute(0, 2, 3, 1)
 
 
 @torch.no_grad()

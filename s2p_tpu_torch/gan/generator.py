@@ -10,6 +10,9 @@ parameter tree (``img_enc.enc{i}``, ``state_fc0/1``, ``seed_fc``,
 tensors are NCHW in ``channels_last`` memory: convolutions take them as they
 are, and ``permute(0, 2, 3, 1)`` of one is the NHWC-contiguous view that the
 fused MAT-norm kernel (``cuda_kernels.fused_mat_norm``) reads at no cost.
+
+Each layer boundary is a span (``utils.profiling.annotate``, names under
+``s2p.gen.`` and ``s2p.mat.``) that a running profiler records.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from s2p_tpu_torch.gan.cuda_kernels import fused_mat_norm
+from s2p_tpu_torch.utils.profiling import annotate
 
 CL = torch.channels_last
 
@@ -78,7 +82,8 @@ def mat_norm_nchw(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> t
     """``instance_norm(x) * (1 + gamma) + beta`` on NCHW tensors through the
     fused kernel's NHWC views (gamma and beta may be channel slices)."""
     nhwc = lambda t: t.permute(0, 2, 3, 1)
-    out = fused_mat_norm(nhwc(x.contiguous(memory_format=CL)), nhwc(gamma), nhwc(beta))
+    with annotate("s2p.mat.norm"):
+        out = fused_mat_norm(nhwc(x.contiguous(memory_format=CL)), nhwc(gamma), nhwc(beta))
     return out.permute(0, 3, 1, 2)
 
 
@@ -116,14 +121,18 @@ class MATNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, state_map: torch.Tensor,
                 image_feat: torch.Tensor) -> torch.Tensor:
-        if self.mat_mode == "mat":
-            cond = cat_channels(state_map, image_feat)
-        elif self.mat_mode == "sat_state":
-            cond = cat_channels(state_map)
-        else:
-            cond = image_feat
-        h = F.relu(self.mlp_shared(cond))
-        return mat_norm_nchw(x, self.mlp_gamma(h), self.mlp_beta(h))
+        with annotate("s2p.mat.cond"):
+            if self.mat_mode == "mat":
+                cond = cat_channels(state_map, image_feat)
+            elif self.mat_mode == "sat_state":
+                cond = cat_channels(state_map)
+            else:
+                cond = image_feat
+        with annotate("s2p.mat.hidden"):
+            h = F.relu(self.mlp_shared(cond))
+        with annotate("s2p.mat.gb"):
+            gamma, beta = self.mlp_gamma(h), self.mlp_beta(h)
+        return mat_norm_nchw(x, gamma, beta)
 
 
 class MATResBlock(nn.Module):
@@ -263,15 +272,20 @@ class S2PGenerator(nn.Module):
 
     def forward(self, state: torch.Tensor, prev_image: torch.Tensor) -> torch.Tensor:
         """state [B, S]; prev_image [B, H, W, C] in [-1, 1] → [B, H, W, C]."""
-        sizes = self.sizes
-        feats = self.img_enc(prev_image.permute(0, 3, 1, 2))
-        enc_by_size = {f.shape[-1]: f for f in feats}
-        e = self.embed_state(state)
-        x = self.seed_map(e)
-        for i, size in enumerate(sizes):
-            block = getattr(self, f"block_{i}")
-            x = block(x, broadcast_state(e, size), enc_by_size[size])
-            if i < len(sizes) - 1:
-                x = upsample_nearest(x, sizes[i + 1])
-        x = self.conv_img(F.leaky_relu(x, 0.2))
-        return torch.tanh(x).permute(0, 2, 3, 1)
+        with annotate("s2p.gen.forward"):
+            sizes = self.sizes
+            with annotate("s2p.gen.encode"):
+                feats = self.img_enc(prev_image.permute(0, 3, 1, 2))
+            enc_by_size = {f.shape[-1]: f for f in feats}
+            with annotate("s2p.gen.embed"):
+                e = self.embed_state(state)
+                x = self.seed_map(e)
+            for i, size in enumerate(sizes):
+                with annotate(f"s2p.gen.block_{i}"):
+                    x = getattr(self, f"block_{i}")(x, broadcast_state(e, size), enc_by_size[size])
+                if i < len(sizes) - 1:
+                    with annotate("s2p.gen.upsample"):
+                        x = upsample_nearest(x, sizes[i + 1])
+            with annotate("s2p.gen.head"):
+                x = torch.tanh(self.conv_img(F.leaky_relu(x, 0.2)))
+            return x.permute(0, 2, 3, 1)

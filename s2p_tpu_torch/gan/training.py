@@ -16,6 +16,11 @@ perceptual loss sees float32 images and float32 VGG weights.
 After a step, each parameter's ``.grad`` holds the gradient that step
 applied.
 
+A step's phases are spans (``utils.profiling.annotate``): ``s2p.train.stage``,
+``.d_update`` (with ``.r1`` on a lazy-R1 step), ``.g_update``, and inside
+the updates ``.cast`` (``_params``) and ``.apply`` (gradient, data-parallel
+sync and optimizer step).
+
 Data parallelism: JAX averages gradients and metrics over the mesh's data
 axis with ``pmean`` inside the step. The port runs one process per card,
 so a trainer given ``dp_group`` (the mesh's data group) averages them
@@ -52,6 +57,7 @@ from s2p_tpu_torch.gan.losses import (
 )
 from s2p_tpu_torch.gan.perceptual import PerceptualLoss
 from s2p_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, mean_metrics, shard_batch, sync_grads
+from s2p_tpu_torch.utils.profiling import annotate
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -133,19 +139,21 @@ class GANTrainer:
     def _params(self, module: nn.Module, grad: bool) -> Dict[str, torch.Tensor]:
         """``compute_dtype`` copies of the module's parameters (no copy in
         float32); differentiable into the float32 ones when ``grad``."""
-        return {k: (p if grad else p.detach()).to(self.compute_dtype)
-                for k, p in module.named_parameters()}
+        with annotate("s2p.train.cast"):
+            return {k: (p if grad else p.detach()).to(self.compute_dtype)
+                    for k, p in module.named_parameters()}
 
     def _apply(self, opt: torch.optim.Optimizer, module: nn.Module, loss: torch.Tensor) -> None:
         """Gradient of ``loss`` over ``module``'s parameters only (zeros for
         one it does not reach), averaged over the data-parallel ranks, set
         as their ``.grad``, then one step."""
-        params = list(module.parameters())
-        grads = torch.autograd.grad(loss, params, materialize_grads=True)
-        sync_grads(grads, self.dp_group)
-        for p, g in zip(params, grads):
-            p.grad = g
-        opt.step()
+        with annotate("s2p.train.apply"):
+            params = list(module.parameters())
+            grads = torch.autograd.grad(loss, params, materialize_grads=True)
+            sync_grads(grads, self.dp_group)
+            for p, g in zip(params, grads):
+                p.grad = g
+            opt.step()
 
     def _d_update(self, state, prev, real):
         G, D, cfg = self.generator, self.discriminator, self.loss_cfg
@@ -162,12 +170,14 @@ class GANTrainer:
         loss = hinge_d_loss([x.float() for x in rf], [x.float() for x in ff])
         r1 = torch.zeros((), device=real.device)
         if do_r1:
-            # per-sample mean over patch logits, averaged over scales and
-            # summed over the batch, so grad(img) is each sample's own
-            per_sample = sum(x.float().mean(dim=tuple(range(1, x.dim()))) for x in rf) / len(rf)
-            (grad_real,) = torch.autograd.grad(per_sample.sum(), real_in, create_graph=True)
-            r1 = r1_penalty(grad_real)
-            loss = loss + (0.5 * cfg.r1_gamma * r1_interval) * r1
+            with annotate("s2p.train.r1"):
+                # per-sample mean over patch logits, averaged over scales and
+                # summed over the batch, so grad(img) is each sample's own
+                per_sample = sum(x.float().mean(dim=tuple(range(1, x.dim())))
+                                 for x in rf) / len(rf)
+                (grad_real,) = torch.autograd.grad(per_sample.sum(), real_in, create_graph=True)
+                r1 = r1_penalty(grad_real)
+                loss = loss + (0.5 * cfg.r1_gamma * r1_interval) * r1
         self._apply(self.d_opt, D, loss)
         self.d_step += 1
         return loss.detach(), r1.detach()
@@ -199,14 +209,17 @@ class GANTrainer:
         data parallelism the batch is this rank's part of the global batch,
         and the metrics are averaged over the ranks."""
         dev, dt = self.device, self.compute_dtype
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        prev = _to_signed(batch["prev_image"]).to(dt)
-        real = _to_signed(batch["target_image"]).to(dt)
-        state = batch["state"].float().to(dt)
-        d_loss = d_r1 = torch.zeros((), device=dev)
+        with annotate("s2p.train.stage"):
+            batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            prev = _to_signed(batch["prev_image"]).to(dt)
+            real = _to_signed(batch["target_image"]).to(dt)
+            state = batch["state"].float().to(dt)
+            d_loss = d_r1 = torch.zeros((), device=dev)
         if self.g_step % self.d_every == 0:
-            d_loss, d_r1 = self._d_update(state, prev, real)
-        g_loss, aux = self._g_update(state, prev, real)
+            with annotate("s2p.train.d_update"):
+                d_loss, d_r1 = self._d_update(state, prev, real)
+        with annotate("s2p.train.g_update"):
+            g_loss, aux = self._g_update(state, prev, real)
         metrics = dict(d_loss=d_loss, g_loss=g_loss, **aux)
         if self.loss_cfg.r1_gamma > 0.0:
             metrics["d_r1"] = d_r1

@@ -2,9 +2,14 @@
 
 ``trace`` records a ``torch.profiler`` trace (host and, on the card, CUDA
 activity) and writes it as a Chrome trace; ``annotate`` names a region in
-it (and, on the card, an NVTX range); ``time_compiled_fn`` times the first
-call of a function apart from its steady state. The phase table of
-``utils.timer`` stays beside them.
+it; ``time_compiled_fn`` times the first call of a function apart from its
+steady state. The phase table of ``utils.timer`` stays beside them.
+
+The port's spans (``annotate`` at its layer boundaries, every name starting
+with ``s2p.``) are recorded by whatever profiler is on: ``trace`` writes
+them with the CUDA activity they launched, on one clock; under
+``torch.autograd.profiler.emit_nvtx`` they are NVTX ranges. With no
+profiler on, a span costs a flag test.
 """
 
 from __future__ import annotations
@@ -12,10 +17,13 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Callable, Dict, Iterator
+from typing import Callable, ContextManager, Dict, Iterator
 
 import torch
+from torch.autograd import profiler as autograd_profiler
 from torch.profiler import ProfilerActivity, profile, record_function
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -31,18 +39,14 @@ def trace(log_dir: str) -> Iterator[profile]:
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named region inside a trace, and an NVTX range on the card."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+def annotate(name: str) -> ContextManager:
+    """A named region: a ``record_function`` range while a profiler records
+    (``torch.profiler.profile``, ``trace``, ``emit_nvtx``), else one shared
+    null context: a span in the hot path then costs a flag test, not a
+    profiler op that nothing reads."""
+    if not autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return record_function(name)
 
 
 def time_compiled_fn(fn: Callable, *args, iters: int = 10, warmup: int = 2,
