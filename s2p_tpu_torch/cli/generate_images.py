@@ -9,8 +9,12 @@ The port of ``s2p_tpu/cli/generate_images.py``, with the same flags:
 The world-model rollout (``cli/state_transition_rollout.py``) writes
 synthetic transitions without next images. For each row i this renders
 ``image_observations_tp1[i] = G(next_observations[i],
-image_observations[i])`` with the generator's module path, batch by batch,
-and writes the ``-rl.hdf5`` that offline RL reads.
+image_observations[i])``, batch by batch, and writes the ``-rl.hdf5`` that
+offline RL reads. A ``netG=s2p`` generator (``mat_mode`` 'mat') renders on
+the fast path (``gan/fast_inference.py``: the state half of every MAT
+condition by the constant-map shortcut, its operands fused once a call);
+the ``sat_*`` generators, which the fast path does not specialise, on the
+module path.
 
 ``--gpu_ids``: ``0`` (the default) runs on ``cuda:0``, ``-1`` on the CPU.
 Without CUDA any id other than -1 is an error.
@@ -25,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from s2p_tpu_torch.gan.fast_inference import fast_apply, fuse_fast_params
 from s2p_tpu_torch.utils.profiling import annotate
 
 
@@ -51,9 +56,11 @@ def generate_images_for_dataset(dataset: dict, gen: torch.nn.Module, batch_size:
     """Generated uint8 frames ``[N, H, W, C]``: ``gen(next_observations,
     image_observations / 127.5 − 1)`` in ``batch_size`` rows at a time (the
     tail padded to one batch shape), on ``gen``'s device; with ``bf16`` a
-    bfloat16 copy of ``gen`` runs. Batches are dispatched without waiting
-    for the card; each result is copied without blocking into one pinned
-    host buffer, which is read after a single synchronisation. Spans:
+    bfloat16 copy of ``gen`` runs. A 'mat' generator runs ``fast_apply``
+    on operands fused once, after the copy; the others run ``gen`` itself.
+    Batches are dispatched without waiting for the card; each result is
+    copied without blocking into one pinned host buffer, which is read
+    after a single synchronisation. Spans:
     ``s2p.bridge.stage`` (host rows to device inputs), ``s2p.bridge.d2h``
     (uint8 frames into the pinned buffer), ``s2p.bridge.sync``."""
     imgs = np.asarray(dataset["image_observations"])
@@ -63,6 +70,11 @@ def generate_images_for_dataset(dataset: dict, gen: torch.nn.Module, batch_size:
     dtype = torch.bfloat16 if bf16 else torch.float32
     if next(gen.parameters()).dtype != dtype:
         gen = copy.deepcopy(gen).to(dtype)
+    if gen.mat_mode == "mat":
+        params = fuse_fast_params(gen)
+        render = lambda state, prev: fast_apply(gen, params, state, prev)
+    else:
+        render = gen
 
     n_batches = -(-n // batch_size)
     out = torch.empty((n_batches * batch_size,) + imgs.shape[1:], dtype=torch.uint8,
@@ -77,7 +89,7 @@ def generate_images_for_dataset(dataset: dict, gen: torch.nn.Module, batch_size:
                 p = np.concatenate([p, np.zeros((pad,) + p.shape[1:], p.dtype)])
             state = torch.from_numpy(s).to(device, non_blocking=True).to(dtype)
             prev = torch.from_numpy(p).to(device, non_blocking=True).to(dtype) / 127.5 - 1.0
-        frames = gen(state, prev)
+        frames = render(state, prev)
         with annotate("s2p.bridge.d2h"):
             frames = ((frames.float() + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
             out[lo:lo + batch_size].copy_(frames, non_blocking=True)

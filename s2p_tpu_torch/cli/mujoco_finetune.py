@@ -154,10 +154,10 @@ def _setup_resume(variant, trainer, start_epoch: int, log):
 def ingest_generated_on_device(slac, dataset: dict, gen, uncertainty_type: Optional[str],
                                uncertainty_penalty_lambda: Optional[float]) -> Tuple[int, int]:
     """Render the augmented ``dataset``'s next frames, ``i_{t+1} =
-    G(s_{t+1}, i_t)``, with the S2P generator ``gen`` on its device (module
-    path, bf16, 256 rows at a time) and ingest the rows with them
-    into the generated-data buffer (the main one unless SLAC keeps a
-    separate one), rewards penalized by ``uncertainty_type``. Returns (slots
+    G(s_{t+1}, i_t)``, with the S2P generator ``gen`` on its device
+    (``generate_images_for_dataset``: bf16, 256 rows at a time) and ingest
+    the rows with them into the generated-data buffer (the main one unless
+    SLAC keeps a separate one), rewards penalized by ``uncertainty_type``. Returns (slots
     added, frames rendered)."""
     from s2p_tpu_torch.cli.generate_images import generate_images_for_dataset
 

@@ -55,8 +55,9 @@ def test_const_map_border_masks_exact_in_bf16_at_large_res():
 
 
 @pytest.mark.parametrize("block_level", [True, False])
-@pytest.mark.parametrize("size", [64, 25])
+@pytest.mark.parametrize("size", [64, 25, 100])
 def test_fast_apply_matches_jax(size, block_level):
+    """100 is the bridge's ragged chain 100 → 50 → 25 → 13 → 7."""
     jgen, params, gen = make_pair(size)
     s, img = inputs(size)
     jfast = jax.jit(lambda p, s, i: jax_fast_apply(

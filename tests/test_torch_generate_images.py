@@ -54,6 +54,28 @@ def test_generate_images_matches_jax():
     np.testing.assert_array_equal(generate_images_for_dataset(ds, gen, batch_size=10), out)
 
 
+@pytest.mark.parametrize("mat_mode", ["mat", "sat_state"])
+def test_generate_images_path_by_mat_mode_matches_jax(mat_mode, monkeypatch):
+    """At 100px (the walker's ragged chain 100-50-25-13-7): a 'mat'
+    generator renders every batch through ``fast_apply``, a ``sat_state``
+    one through its module path; both against the JAX bridge (module
+    path), N = 6 at batch 4."""
+    from s2p_tpu_torch.cli import generate_images
+
+    fast_calls = []
+    fast_apply = generate_images.fast_apply
+    monkeypatch.setattr(generate_images, "fast_apply",
+                        lambda *a: fast_calls.append(1) or fast_apply(*a))
+    jgen, params, gen = make_pair(100, mat_mode)
+    ds = frames_dataset(6, 100, seed=2)
+    ref = jax_generate_images(ds, jgen, {"params": params}, batch_size=4)
+    out = generate_images_for_dataset(ds, gen, batch_size=4)
+    assert len(fast_calls) == (2 if mat_mode == "mat" else 0)
+    assert out.shape == ref.shape == (6, 100, 100, 3) and out.dtype == np.uint8
+    diff = np.abs(out.astype(int) - ref.astype(int))
+    assert diff.max() <= 1 and diff.mean() < 0.01, (diff.max(), diff.mean())
+
+
 def test_generate_images_bf16_runs_on_a_copy():
     jgen, params, gen = make_pair(25)
     ds = frames_dataset(6, 25, seed=1)

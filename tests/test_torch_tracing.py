@@ -145,6 +145,30 @@ def test_bridge_spans_and_frames():
     n = counts(spans_of(prof))
     assert n["s2p.gen.forward"] == n["s2p.bridge.stage"] == n["s2p.bridge.d2h"] == 3
     assert "s2p.bridge.sync" not in n  # only a card is synchronised
+    # a 'mat' generator renders on the fast path: operands fused once a call,
+    # one constant-map assembly and one hidden conv per block a pass, no concat
+    blocks = len(gen.sizes)
+    assert n["s2p.fast.fuse"] == 1
+    assert n["s2p.fast.cmap"] == n["s2p.mat.hidden"] == blocks * 3
+    assert "s2p.mat.cond" not in n
+
+
+def test_bridge_spans_on_the_module_path():
+    """A ``sat_state`` generator, which the fast path does not specialise,
+    renders on the module path: one concat per MAT norm a pass."""
+    gen = S2PGenerator(CFG["state_dim"], device="cpu", mat_mode="sat_state",
+                       **{k: CFG[k] for k in GEN_KEYS}).requires_grad_(False)
+    rows = bridge_rows(5)
+    plain = generate_images_for_dataset(rows, gen, batch_size=2)
+    with cpu_profile() as prof:
+        traced = generate_images_for_dataset(rows, gen, batch_size=2)
+    np.testing.assert_array_equal(plain, traced)
+    n = counts(spans_of(prof))
+    norms = sum(hasattr(getattr(gen, f"block_{i}"), k) for i in range(len(gen.sizes))
+                for k in ("norm_0", "norm_1", "norm_s"))
+    assert n["s2p.gen.forward"] == 3
+    assert n["s2p.mat.cond"] == n["s2p.mat.norm"] == norms * 3
+    assert not [k for k in n if k.startswith("s2p.fast.")]
 
 
 def tiny_trainer():
