@@ -1,13 +1,17 @@
 """Readings for the correctness limits of one cell, many seeds in one process:
 
     python3 portbench/calibrate.py --workload <cell> --seeds a,b,... \
-        [--controls fp8,bf16] [--control-seeds c,d,e] [--out FILE]
+        [--controls fp8,bf16] [--control-seeds c,d,e] [--out FILE] \
+        [--config C --traffic T]
 
 For each seed: the cell's set-up, the calls the comparison judges (as many
 as a run judges), then the comparison (the program's readings). For each
 control seed and control: the same, with the control in the program's
 place. One JSON line per reading set, to standard output and ``--out``.
-The benchmark's own runs do not run this.
+A cell outside ``BENCHMARK.json`` is named with its ``--config`` and
+``--traffic``. Exits non-zero without a card, and stops, printing no further
+line, once JAX or the JAX package is loaded. The benchmark's own runs do not
+run this.
 """
 
 from __future__ import annotations
@@ -36,14 +40,22 @@ def main(argv=None) -> int:
     p.add_argument("--controls", default="")
     p.add_argument("--control-seeds", default="")
     p.add_argument("--out")
+    p.add_argument("--config", help="the configuration of a cell outside BENCHMARK.json")
+    p.add_argument("--traffic", help="the traffic mix of a cell outside BENCHMARK.json")
     args = p.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import torch
 
     from portbench import harness
 
-    cell = harness.load_cell(args.workload)
-    device = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    entry = (dict(name=args.workload, config=args.config, traffic=args.traffic, chips=1)
+             if args.config else None)
+    cell = harness.load_cell(args.workload, entry=entry)
+    if not torch.cuda.is_available():
+        print(f"{args.workload} needs a CUDA device", file=sys.stderr)
+        return 2
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
     harness.set_precision(cell.config["precision"])
     driver = cell.driver
     out = open(args.out, "a") if args.out else None
@@ -56,7 +68,7 @@ def main(argv=None) -> int:
         if seed not in by_seed:
             by_seed.clear()
             gc.collect()
-            torch.cuda.empty_cache() if device.type == "cuda" else None
+            torch.cuda.empty_cache()
             ctx = harness.Ctx(cell, seed, device)
             prog = driver.setup(ctx)
             for i in range(judged_calls(cell.traffic)):
@@ -72,11 +84,17 @@ def main(argv=None) -> int:
                     seconds=time.perf_counter() - t0)
         if report and "leaves" in report:
             leaves = report.pop("leaves")
-            line["worst_leaves"] = [list(r) for r in sorted(leaves, reverse=True)[:4]]
+            line["worst_leaves"] = {
+                k: [list(r) for r in sorted((r for r in leaves if r[1] == k), reverse=True)[:3]]
+                for k in ("grad_gap", "change_gap")}
             line["median_leaf"] = {k: statistics.median(r[0] for r in leaves if r[1] == k)
                                    for k in ("grad_gap", "change_gap")}
         if report:
             line["report"] = report
+        bad = harness.forbidden_modules()
+        if bad:
+            print("the run loaded JAX or the JAX package: " + ", ".join(bad), file=sys.stderr)
+            return 3
         print(json.dumps(line), flush=True)
         if out:
             out.write(json.dumps(line) + "\n")

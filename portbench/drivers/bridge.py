@@ -1,5 +1,6 @@
 """The GAN → RL bridge: ``generate_images_for_dataset(rows, gen, batch_size,
-bf16)`` (the module path; uint8 frames back on the host) in a closed
+bf16)`` (a ``mat`` generator renders on the fast path, ``fast_apply`` on
+operands fused once a call; uint8 frames back on the host) in a closed
 loop, ``rows_per_call`` rows a call.
 
 Traffic: a host pool of ``pool_rows`` augment-schema rows (uint8
@@ -34,6 +35,9 @@ class Bridge:
                                               dev, dtype)
         self.gen = program.build_generator(cfg, self.weights, dev, dtype)
         N, H, C = tr["pool_rows"], cfg["image_size"], cfg["out_channels"]
+        if N % tr["rows_per_call"]:
+            raise ValueError(f"pool_rows {N} is not a whole number of calls of "
+                             f"{tr['rows_per_call']} rows: a call would run past the pool")
         g = ctx.generator("traffic")
         self.images = torch.randint(0, 256, (N, H, H, C), generator=g, device=dev,
                                     dtype=torch.uint8).cpu().numpy()

@@ -196,10 +196,12 @@ WINDOW_SPAN = "portbench.window"
 
 def traced_window(prog, ctx: Ctx, calls: int) -> dict:
     """``calls`` calls under ``torch.profiler``, reduced to a summary of the
-    device's intervals (``trace.summarize``)."""
+    device's intervals (``trace.summarize``) with the program's span table
+    under ``spans`` (``spans.summarize``) and the device time by innermost
+    span and operation under ``self_ops`` (``spans.self_ops``)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from portbench import trace
+    from portbench import spans, trace
 
     ctx.sync()
     units: Dict[str, float] = {}
@@ -215,7 +217,10 @@ def traced_window(prog, ctx: Ctx, calls: int) -> dict:
     os.close(fd)
     try:
         prof.export_chrome_trace(path)
-        summary = trace.summarize(load_json(Path(path)), WINDOW_SPAN)
+        doc = load_json(Path(path))
+        summary = trace.summarize(doc, WINDOW_SPAN)
+        summary["spans"] = spans.summarize(doc, WINDOW_SPAN)
+        summary["self_ops"] = spans.self_ops(doc, WINDOW_SPAN)
     finally:
         os.remove(path)
     return dict(window_s=summary["window_s"], calls=calls, units=units, latencies_s=[],
@@ -239,9 +244,11 @@ def judge(readings: Dict[str, float], limits: Dict[str, float]) -> bool:
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
-             started: float, driver=None) -> dict:
+             started: float, driver=None, tables: Optional[dict] = None) -> dict:
     """One run of ``cell``: set-up, the window (timed, or traced), the
-    comparison with the reference. Returns the result line's object."""
+    comparison with the reference. Returns the result line's object; a
+    traced run puts its span table and ``self_ops`` under ``tables["spans"]``
+    and ``tables["self_ops"]`` when given."""
     import torch
 
     driver = driver or cell.driver
@@ -252,6 +259,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     setup_s = time.perf_counter() - started
     if trace:
         rec = traced_window(prog, ctx, cell.traffic["trace_calls"])
+        if tables is not None:
+            tables.update((k, rec["trace"][k]) for k in ("spans", "self_ops"))
     else:
         rec = timed_window(prog, ctx, seconds)
     rec.update(setup_s=setup_s, config=cell.config, traffic=cell.traffic)

@@ -40,8 +40,8 @@ def launches_per(rec, unit: str):
     return rec["trace"]["kernels"] / n if rec.get("trace") and n else None
 
 
-def mfu(model_flops: float, rec):
-    return 100.0 * model_flops / (rec["window_s"] * peaks.BF16_FLOPS)
+def mfu(model_flops: float, rec, peak: float = peaks.BF16_FLOPS):
+    return 100.0 * model_flops / (rec["window_s"] * peak)
 
 
 def mfu_gen(rec):

@@ -4,9 +4,10 @@
 
 Prints the result as the last line of standard output (one JSON object)
 and each compared number beside its limit as the last lines of standard
-error. Exits non-zero, printing no result, without a card (or with fewer
-cards than the cell asks for), without the port, or when JAX or the JAX
-package was loaded.
+error; with ``--trace 1`` the program's span table (``spans.format_table``)
+comes before them. Exits non-zero, printing no result, without a card (or
+with fewer cards than the cell asks for), without the port, or when JAX or
+the JAX package was loaded.
 """
 
 import time
@@ -48,11 +49,17 @@ def main(argv=None) -> int:
         return 2
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    result = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace), device, STARTED)
+    tables: dict = {}
+    result = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace), device, STARTED,
+                              tables=tables)
     bad = harness.forbidden_modules()
     if bad:
         print("the run loaded JAX or the JAX package: " + ", ".join(bad), file=sys.stderr)
         return 3
+    if "spans" in tables:
+        from portbench import spans
+
+        print("\n".join(spans.format_table(tables["spans"])), file=sys.stderr)
     for name, c in result["checks"].items():
         print(f"{name} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
     print(json.dumps(result), flush=True)

@@ -18,11 +18,13 @@ such name:
 
 Beside the rows, ``syncs`` counts the window's host-blocking calls.
 
-Run as a script, it runs one cell's traced window through the harness, as
-``run.py --trace 1`` does, with the span table added: the table and
-``self_ops`` (device time by innermost span and operation) on standard
-error, the result line (with both) on standard output. A cell outside
-``BENCHMARK.json`` is named with its ``--config`` and ``--traffic``:
+The harness puts the table (``spans``) and ``self_ops`` (device time by
+innermost span and operation) in every traced run's summary, and ``run.py
+--trace 1`` prints the table. Run as a script, this runs one cell's traced
+window through the harness: the table and ``self_ops`` on standard error,
+the result line (with both) on standard output; it prints no result when
+JAX or the JAX package was loaded. A cell outside ``BENCHMARK.json`` is
+named with its ``--config`` and ``--traffic``:
 
     python3 portbench/spans.py --workload <cell> --seed <n> [--config C --traffic T]
 """
@@ -33,7 +35,6 @@ STARTED = time.perf_counter()  # set-up counts from the start of the process
 
 import argparse  # noqa: E402
 import bisect  # noqa: E402
-import contextlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
@@ -48,18 +49,9 @@ SYNCS = frozenset(("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventS
                    "cudaMemcpy", "cuStreamSynchronize", "cuCtxSynchronize",
                    "cuEventSynchronize"))
 
-# the per-layer metrics that read the table, stated as BENCHMARK.json states its entries:
-# the harness hands its readers no span table yet, so this script adds them to a cell
+# a span metric that BENCHMARK.json does not carry, which the script adds to its cell: the
+# `mat` bridge renders on the fast path, which opens no `s2p.mat.cond`, so it reads none there
 METRICS = [
-    {"name": "syncs_per_pass.gen", "unit": "syncs/pass", "better": "lower",
-     "source": "program_span", "layer": "host glue", "moves": "gen_frames_per_s",
-     "workloads": ["cheetah64-rollout-b256"]},
-    {"name": "syncs_per_pass.bridge", "unit": "syncs/pass", "better": "lower",
-     "source": "program_span", "layer": "host glue", "moves": "bridge_frames_per_s",
-     "workloads": ["walker100-bridge-b256"]},
-    {"name": "cmap_share.gen", "unit": "%", "better": "lower", "source": "program_span",
-     "layer": "MAT conditioning", "moves": "gen_frames_per_s",
-     "workloads": ["cheetah64-rollout-b256"]},
     {"name": "cond_cat_share.bridge", "unit": "%", "better": "lower", "source": "program_span",
      "layer": "MAT conditioning", "moves": "bridge_frames_per_s",
      "workloads": ["walker100-bridge-b256"]},
@@ -205,6 +197,14 @@ def syncs_per_pass(rec):
     return t["syncs"] / t["by_name"][PASS]["count"] if t else None
 
 
+def syncs_per(rec, unit: str):
+    """The window's host-blocking calls ÷ the units of work done in it; the
+    count needs no span of the program."""
+    t = (rec.get("trace") or {}).get("spans")
+    n = rec["units"].get(unit)
+    return t["syncs"] / n if t and n else None
+
+
 def busy_share(rec, name: str):
     """The device time launched inside spans ``name`` ÷ the window's busy time, in %."""
     t = table(rec)
@@ -214,27 +214,6 @@ def busy_share(rec, name: str):
 
 
 # -- the script ---------------------------------------------------------------
-
-@contextlib.contextmanager
-def attached(captured: list):
-    """``trace.summarize`` with ``spans`` added to its summary; every key it
-    had is computed as before. Appends (the table, ``self_ops``) to ``captured``."""
-    from portbench import trace
-
-    plain = trace.summarize
-
-    def with_spans(doc, window_span):
-        out = plain(doc, window_span)
-        out["spans"] = summarize(doc, window_span)
-        captured.append((out["spans"], self_ops(doc, window_span)))
-        return out
-
-    trace.summarize = with_spans
-    try:
-        yield
-    finally:
-        trace.summarize = plain
-
 
 def format_table(t: dict) -> List[str]:
     rows = sorted(t["by_name"].items(), key=lambda kv: -kv[1]["device_s"])
@@ -273,10 +252,13 @@ def main(argv=None) -> int:
         return 2
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    captured: list = []
-    with attached(captured):
-        result = harness.run_cell(cell, args.seed, 0.0, True, device, STARTED)
-    spans, ops = captured[-1]
+    tables: dict = {}
+    result = harness.run_cell(cell, args.seed, 0.0, True, device, STARTED, tables=tables)
+    bad = harness.forbidden_modules()
+    if bad:
+        print("the run loaded JAX or the JAX package: " + ", ".join(bad), file=sys.stderr)
+        return 3
+    spans, ops = tables["spans"], tables["self_ops"]
     print("\n".join(format_table(spans)), file=sys.stderr)
     for name, op, n, seconds in ops:
         print(f"{name:<20} {n:>7} {seconds:>10.6f} {op[:120]}", file=sys.stderr)

@@ -9,7 +9,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 from portbench import harness  # noqa: E402
 
 TINY_GEN = dict(ngf=8, state_embed_dim=16, mat_hidden=8)
-TINY_TRAFFIC = dict(batch=4, pool=3, pool_rows=32, rows_per_call=12, judged_rows=8,
+TINY_TRAFFIC = dict(batch=4, pool=3, pool_rows=32, rows_per_call=16, judged_rows=8,
                     judged_calls=2, trace_calls=2, warmup_calls=1, check_chunk=4)
 
 
@@ -20,6 +20,11 @@ PARKED = {
                             "traffic": "train-b16", "chips": 1},
     "cheetah64-rollout-b1": {"name": "cheetah64-rollout-b1", "config": "s2p-cheetah-64-f32",
                              "traffic": "rollout-b1", "chips": 1},
+    "slac-iql-100-b128": {"name": "slac-iql-100-b128", "config": "slac-iql-cheetah-100",
+                          "traffic": "iql-b128", "chips": 1,
+                          "why": "offline IQL + SLAC steps: batch 128 windows of 9 100px frames "
+                                 "from 1,000 real + 1,000 generated rows on the card, f32 (TF32 "
+                                 "convs), joint ELBO step on 32 windows a call"},
 }
 
 

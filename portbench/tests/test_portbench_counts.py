@@ -12,7 +12,9 @@ from portbench.reference import nets
 from portbench.reference.precision import Precision
 
 ROOT = Path(__file__).resolve().parents[2]
-CONFIGS = {p.stem: json.loads(p.read_text()) for p in (ROOT / "portbench" / "configs").glob("*.json")}
+# the generator configurations (the RL step's count is held in test_portbench_slac_iql.py)
+CONFIGS = {p.stem: cfg for p in (ROOT / "portbench" / "configs").glob("*.json")
+           if "ngf" in (cfg := json.loads(p.read_text()))}
 F32 = Precision("f32")
 
 

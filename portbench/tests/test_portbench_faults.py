@@ -76,16 +76,20 @@ def _altered(fn):  # one answer (a frame) altered where it is produced
 @pytest.mark.parametrize("name", GEN_CELLS)
 @pytest.mark.parametrize("fault", ["unchanged", "half_batch", "altered"])
 def test_generation_fault_fails(name, fault, monkeypatch):
+    import s2p_tpu_torch.cli.generate_images as bridge
     import s2p_tpu_torch.gan.fast_inference as fi
     import s2p_tpu_torch.gan.generator as g
 
     if fault == "unchanged":
         monkeypatch.setattr(g.S2PGenerator, "forward", _unchanged)
-        monkeypatch.setattr(fi, "fast_apply", lambda gen, p, s, prev, *a: prev.clone())
+        broken = lambda gen, p, s, prev, *a: prev.clone()  # noqa: E731
     else:
         wrap = _half_batch if fault == "half_batch" else _altered
         monkeypatch.setattr(g.S2PGenerator, "forward", wrap(g.S2PGenerator.forward))
-        monkeypatch.setattr(fi, "fast_apply", wrap(fi.fast_apply))
+        broken = wrap(fi.fast_apply)
+    # the bridge holds its own name for the fast path
+    for module in (fi, bridge):
+        monkeypatch.setattr(module, "fast_apply", broken)
     res = run(tiny_cell(name, precision="f32-tf32"))
     assert not res["correct"], res["checks"]
 
