@@ -287,13 +287,23 @@ TP world's batch of 2·world, f32, forward.
     line under ``dryrun``. Every trained leg leaves the ranks' parameters
     bit-equal, and the state legs (on global batch indices and CQL draws
     the ranks share out) within 1e-5 of one process's ``train_many``.
+26. GauGAN (a main path): the SPADE-norm kernel against its plain version
+    at the 18 norm shapes of one pass (ADE20K 256², ngf 64; batch 32, f32
+    and bf16, γ and β as the halves of one γ‖β tensor and as contiguous
+    tensors, plus a scalar-path shape off the vector grid), with its plan
+    and its device time beside its bytes-bound time and the plain
+    version's per shape; then ``synthesize_fast`` at batch 32 in bf16 with
+    the ``spade-ade256-b32`` cell's weights and maps: a pass must launch
+    the kernel 18 times (count reset just before), and its frames must
+    hold to the module path in f32 (TF32 off) within the cell's limits.
 
 ``--ab DIR`` runs phases 1 and 2, then times the MAT-norm kernels against
 those of the checkout in DIR in turns, then the two main paths end to end
 (serving frames/sec, bf16 and f32 train step), each side in processes of
 its own (``--time-paths ROOT``), in turns, and stops. ``--sweep`` runs
 phases 1 and 2, then times every launch plan of the two kernels at each
-bf16 main-path shape, and stops.
+bf16 main-path shape, and stops. ``--spade`` runs phases 1, 2 and 26, and
+stops.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` also writes a
@@ -3834,6 +3844,141 @@ def phase_dryrun(ck, card: str, norms_per_step: int) -> dict:
                 runs=runs)
 
 
+SPADE_CELL = "spade-ade256-b32"  # the benchmark cell whose shapes, weights, maps and limits are used
+SPADE_BATCH = 32  # its batch
+SPADE_CHUNK = 8  # rows a module-path call renders in f32
+SPADE_F32_TOL = 1e-5  # rtol and atol: the kernel's FMA against the plain version's two roundings
+
+
+def phase_spade_norm(ck, card: str) -> dict:
+    """``spade_norm`` against ``spade_norm_plain`` at every shape of a GauGAN
+    pass, with its device time beside its bound (4 arrays at the HBM rate)."""
+    import torch
+    from portbench import harness
+    from portbench.counts import spade as spade_counts
+
+    t0 = time.time()
+    ck.load_spade_library()
+    print(f"build: spade_norm ({ck.SPADE_SOURCE.name}) built and loaded in "
+          f"{time.time() - t0:.1f} s")
+    shapes = spade_counts.norm_shapes(harness.load_cell(SPADE_CELL).config["opt"])
+    if sum(shapes.values()) != 18:
+        fail(f"spade_norm: {sum(shapes.values())} norms a pass, not 18")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    per_pass = {}
+    before = ck.spade_norm.launches
+    cases = [((h, w, c), n, strided) for (h, w, c), n in sorted(shapes.items())
+             for strided in (True, False)] + [((16, 16, 30), 0, True)]  # scalar: 30 % 4 != 0
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        pass_ms = pass_bound = pass_plain = 0.0
+        for (h, w, c), n, strided in cases:
+            B = SPADE_BATCH if n else 2
+            x = (torch.randn(B, h, w, c, generator=g, device="cuda") * 3 + 1).to(dtype)
+            gb = torch.randn(B, h, w, 2 * c, generator=g, device="cuda").to(dtype)
+            gamma, beta = (gb[..., :c], gb[..., c:]) if strided else (
+                gb[..., :c].contiguous(), gb[..., c:].contiguous())
+            a = torch.rand(c, generator=g, device="cuda") + 0.5
+            b = torch.randn(c, generator=g, device="cuda")
+            with torch.no_grad():
+                out = ck.spade_norm(x, gamma, beta, a, b)
+                ref = ck.spade_norm_plain(x, gamma, beta, a, b)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs()
+            tol = SPADE_F32_TOL if dtype == torch.float32 else BF16_TOL
+            max_err[dtype] = max(max_err[dtype], err.max().item())
+            if not torch.isfinite(out).all() or (err > tol + tol * ref.float().abs()).any():
+                fail(f"spade_norm vs plain at {name} {(B, h, w, c)} strided={strided}: "
+                     f"max |err| {err.max().item():.3g}")
+            bits = x.data_ptr() | gamma.data_ptr() | beta.data_ptr() | (2 * c * x.element_size())
+            plan = ck.spade_norm_plan(B * h * w, c, dtype, bits % 16 == 0,
+                                      ck._sm_count(x.device.index))
+            if n == 0:
+                if plan.vec:
+                    fail(f"spade_norm: C={c} took the vector path")
+                print(f"spade_norm {name} {(B, h, w, c)} scalar path: max |err| "
+                      f"{err.max().item():.3g}")
+                continue
+            if not plan.vec:
+                fail(f"spade_norm: {name} {(B, h, w, c)} fell to the scalar path")
+            with torch.no_grad():
+                ms = device_ms(lambda: ck.spade_norm(x, gamma, beta, a, b))
+                plain = device_ms(lambda: ck.spade_norm_plain(x, gamma, beta, a, b), iters=5)
+            elems = B * h * w * c
+            bound = max(4 * elems * x.element_size() / HBM_BYTES_PER_S,
+                        5 * elems / 67e12) * 1e3
+            print(f"spade_norm {name} {(B, h, w, c)} strided={strided} x{n}/pass: "
+                  f"{ms:.4f} ms (bound {bound:.4f}, {100 * bound / ms:.1f}%), plain "
+                  f"{plain:.4f} ms; plan lanes {plan.lanes} threads {plan.threads} "
+                  f"grid {plan.grid}x{plan.c_tiles}; max |err| {err.max().item():.3g}")
+            if strided:  # the fast path's layout
+                pass_ms += n * ms
+                pass_bound += n * bound
+                pass_plain += n * plain
+        per_pass[name] = dict(ms=pass_ms, bound_ms=pass_bound, plain_ms=pass_plain,
+                              roofline_pct=100 * pass_bound / pass_ms)
+        print(f"spade_norm {name}, one pass at batch {SPADE_BATCH} (18 launches): "
+              f"{pass_ms:.4f} ms against a bound of {pass_bound:.4f} ms "
+              f"({100 * pass_bound / pass_ms:.1f}%), plain {pass_plain:.4f} ms")
+    print(f"spade_norm vs plain: max |err| f32 {max_err[torch.float32]:.3g}, bf16 "
+          f"{max_err[torch.bfloat16]:.3g} (tolerance f32 rtol=atol {SPADE_F32_TOL}, bf16 "
+          f"rtol=atol {BF16_TOL}); {ck.spade_norm.launches - before} launches; {card}")
+    return dict(per_pass=per_pass, max_err={str(k).split(".")[-1]: v
+                                            for k, v in max_err.items()})
+
+
+
+def phase_spade_path(ck, card: str) -> dict:
+    """GauGAN's main path, ``synthesize_fast``, at the ``spade-ade256-b32``
+    cell's shapes and weights (ADE20K 256², ngf 64, batch 32, bf16): the
+    SPADE-norm launches of one pass (18, counted from 0 just before it), its
+    device time, and its frames against the module path (``gen(onehot)``) in
+    f32 with TF32 off, held to the cell's limits."""
+    import torch
+    from portbench import harness
+    from s2p_tpu_torch.gan import fuse_fast_params, label_onehot, synthesize_fast
+
+    cell = harness.load_cell(SPADE_CELL)
+    ctx = harness.Ctx(cell, 0, torch.device("cuda"))
+    drv, opt, tr = cell.driver, cell.config["opt"], cell.traffic
+    weights = drv.seeded_weights(ctx)
+    gen = drv.build_generator(opt, weights, ctx.device, torch.bfloat16)
+    params = fuse_fast_params(gen)
+    ids = drv.label_maps(tr["batch"], gen.image_hw, gen.semantic_nc, tr["regions"],
+                         tr["zipf_s"], ctx.generator("traffic"), ctx.device)
+    with torch.no_grad():
+        synthesize_fast(gen, ids, params)  # builds the kernel and warms every shape
+        torch.cuda.synchronize()
+        ck.spade_norm.launches = 0
+        frames = synthesize_fast(gen, ids, params)
+        torch.cuda.synchronize()
+        launches = ck.spade_norm.launches
+        if launches != 18:
+            fail(f"synthesize_fast: {launches} spade_norm launches a pass, not 18")
+        ms = time_ms(lambda: synthesize_fast(gen, ids, params), iters=10)
+        tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        gen32 = drv.build_generator(opt, weights, ctx.device, torch.float32)
+        module = torch.cat([gen32(label_onehot(ids[lo:lo + SPADE_CHUNK], gen32.semantic_nc))
+                            for lo in range(0, len(ids), SPADE_CHUNK)])
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del gen32, params
+    err = frames.float() - module
+    gaps = dict(frame_max_gap=err.abs().max().item(),
+                frame_rms_gap=err.square().mean().sqrt().item())
+    saturated = (frames.float().abs() > drv.SATURATED).float().mean().item()
+    print(f"GauGAN synthesize_fast, batch {len(ids)} at {gen.image_hw} bf16: {launches} "
+          f"spade_norm launches a pass; {ms:.3f} ms a pass ({1e3 * len(ids) / ms:.1f} "
+          f"frames/s, events, host included); against the module path in f32: " +
+          ", ".join(f"{k} {v:.4g} (limit {cell.limits[k]})" for k, v in gaps.items()) +
+          f"; saturated share {saturated:.4f}; {card}")
+    if not all(torch.isfinite(frames.float()).all().item() and v <= cell.limits[k]
+               for k, v in gaps.items()):
+        fail(f"synthesize_fast vs the module path: {gaps} beyond {cell.limits}")
+    return dict(launches=launches, ms=ms, gaps=gaps, saturated_share=saturated)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -3845,6 +3990,10 @@ def main() -> None:
     ap.add_argument("--sweep", action="store_true",
                     help="only build and time every launch plan of the MAT-norm kernels at "
                          "the main-path shapes, and stop (no result line)")
+    ap.add_argument("--spade", action="store_true",
+                    help="only run phase 26 (the SPADE-norm kernel at the 18 shapes of a "
+                         "GauGAN pass, then GauGAN's fast path against its module path), "
+                         "and stop")
     ap.add_argument("--time-paths", default=None, metavar="ROOT",
                     help="only time the two main paths end to end with the s2p_tpu_torch "
                          "of the checkout in ROOT and print them as JSON (one side of --ab)")
@@ -3874,6 +4023,10 @@ def main() -> None:
     ck.load_library()
     print(f"build: fused_mat_norm ({ck.SOURCE.name}) built and loaded in {time.time() - t0:.1f} s")
 
+    if args.spade:
+        print(json.dumps(dict(kernel=phase_spade_norm(ck, card),
+                              path=phase_spade_path(ck, card))))
+        return
     if args.ab:
         phase_ab(ck, args.ab, card)
     if args.sweep:
@@ -3990,6 +4143,13 @@ def main() -> None:
     dry = phase_dryrun(ck, card, sum(norm_shapes(gen_cpu).values()))
     print(f"phase 25: {time.time() - t0:.1f} s")
 
+    # phase 26: the SPADE-norm kernel at every shape of a GauGAN pass, then
+    # GauGAN's fast path (a main path) against its module path
+    t0 = time.time()
+    spade_kernel = phase_spade_norm(ck, card)
+    spade_path = phase_spade_path(ck, card)
+    print(f"phase 26: {time.time() - t0:.1f} s")
+
     by_path = dict(serving=serving["launches"], training=training["fwd"], bridge=bridge,
                    gb_int8=gb_int8, slac_pretrain=pretrain["launches"], slac_iql=iql["launches"],
                    cql_slac=cql["launches"], eval_metrics=evals["launches"],
@@ -4042,7 +4202,25 @@ def main() -> None:
             "wall_ms: wall time per call, as PR 2 timed ms; instance_norm_bwd_ms is the "
             "autograd backward of F.instance_norm alone (wall per call), a partial yardstick",
     )
-    print(json.dumps({"kernels": [fwd_record, bwd_record]}))
+    spade_pass = spade_kernel["per_pass"]["bfloat16"]
+    spade_record = dict(
+        name="spade_norm", route="cuda", source="s2p_tpu_torch/csrc/spade_norm.cu",
+        replaces=None, launches=spade_path["launches"],
+        launches_by_path=dict(spade_synth=spade_path["launches"]),
+        max_abs_err=spade_kernel["max_err"]["float32"],
+        max_abs_err_bf16=spade_kernel["max_err"]["bfloat16"],
+        ms=spade_pass["ms"], plain_ms=spade_pass["plain_ms"], bound_ms=spade_pass["bound_ms"],
+        bound_by="bytes", library_ms=None, path_ms=spade_path["ms"],
+        path_gaps=spade_path["gaps"],
+        per="ms/plain_ms/bound_ms: the 18 SPADE norms of one GauGAN pass (ADE20K 256², "
+            "ngf 64) at batch 32 in bf16, gamma and beta the halves of one gamma||beta "
+            "tensor; device time (CUDA graph replay); bound: 4 arrays at the HBM rate; no "
+            "library kernel computes the modulation with given statistics (library_ms "
+            "None); the JAX package has no such kernel (replaces None); path_ms: one "
+            "synthesize_fast pass at batch 32 (events, host included); path_gaps: its "
+            "frames against the module path in f32",
+    )
+    print(json.dumps({"kernels": [fwd_record, bwd_record, spade_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

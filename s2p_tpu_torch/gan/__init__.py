@@ -3,9 +3,17 @@ from s2p_tpu_torch.gan.generator import (
     MATResBlock,
     PositionalEmbedding,
     S2PGenerator,
+    SPADEGenerator,
+    SPADENorm,
+    label_onehot,
     resolution_chain,
 )
-from s2p_tpu_torch.gan.fast_inference import fast_apply, fuse_fast_params, generate_rollout_fast
+from s2p_tpu_torch.gan.fast_inference import (
+    fast_apply,
+    fuse_fast_params,
+    generate_rollout_fast,
+    synthesize_fast,
+)
 from s2p_tpu_torch.gan.rollout import generate_rollout
 from s2p_tpu_torch.gan.discriminator import MultiscaleDiscriminator, NLayerDiscriminator
 from s2p_tpu_torch.gan.perceptual import (
@@ -35,10 +43,14 @@ __all__ = [
     "MATResBlock",
     "PositionalEmbedding",
     "S2PGenerator",
+    "SPADEGenerator",
+    "SPADENorm",
+    "label_onehot",
     "resolution_chain",
     "fast_apply",
     "fuse_fast_params",
     "generate_rollout_fast",
+    "synthesize_fast",
     "generate_rollout",
     "MultiscaleDiscriminator",
     "NLayerDiscriminator",

@@ -12,6 +12,9 @@ back:
 ``.pth`` files from the SPADE lineage (the released S2P checkpoints) use
 other module names; ``spade_block_name_map`` and ``remap_state_dict`` turn
 them into ours, and ``diff_state_dict`` reports what does not line up.
+A checkpoint of SPADE's own generator (``netG=spade``, whose module names
+the port's ``SPADEGenerator`` keeps) loads through
+``state_dict_from_spade``, which folds its spectral norm.
 """
 
 from __future__ import annotations
@@ -96,6 +99,31 @@ def save_generator_checkpoint(path_base: str, generator: torch.nn.Module) -> Non
 SPADE_SUBSTITUTIONS: List[Tuple[str, str]] = [
     (".mlp_shared.0.", ".mlp_shared."),
 ]
+
+
+def state_dict_from_spade(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A state dict in SPADE's own names (NVlabs/SPADE's ``netG``) as the
+    port's ``SPADEGenerator`` takes it: each spectral-normed conv's
+    ``weight_orig``, ``weight_u`` and ``weight_v`` folded into ``weight`` as
+    an eval-mode ``torch.nn.utils.spectral_norm`` computes it, ``W / (uᵀ W
+    v)`` with W flattened to [out, rest]; ``mlp_shared.0.*`` as
+    ``mlp_shared.*``; each batch norm's ``num_batches_tracked`` (a training
+    counter) dropped. ``param_free_norm.running_mean``/``running_var`` and
+    every other key pass as they are, as float32 tensors (on their device;
+    numpy arrays on the CPU). A ``weight_orig`` without both vectors stays
+    as it is, for ``diff_state_dict`` to report."""
+    t = {k: v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+         for k, v in sd.items()}
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in t.items():
+        if key.endswith((".weight_u", ".weight_v", ".num_batches_tracked")):
+            continue
+        value, base = value.float(), key[: -len("_orig")]
+        if key.endswith(".weight_orig") and base + "_u" in t and base + "_v" in t:
+            u, v = t[base + "_u"].float(), t[base + "_v"].float()
+            value, key = value / torch.dot(u, torch.mv(value.flatten(1), v)), base
+        out[key.replace(".mlp_shared.0.", ".mlp_shared.")] = value
+    return out
 
 
 def spade_block_name_map(n_blocks: int) -> Dict[str, str]:
@@ -198,9 +226,10 @@ def load_generator_checkpoint(path: str, generator: torch.nn.Module,
 
     ``.pkl``: the pickled JAX params the train CLI writes (numpy leaves,
     ``{'params': ...}``). ``.pth``: a torch state dict; keys are tried as
-    they are, then through the SPADE name map; an explicit ``name_map``
-    replaces both. On failure the error carries the ``diff_state_dict``
-    report of every attempt."""
+    they are, then in SPADE's own layout (``state_dict_from_spade``: a
+    ``netG=spade`` checkpoint), then through the SPADE name map; an
+    explicit ``name_map`` replaces all three. On failure the error carries
+    the ``diff_state_dict`` report of every attempt."""
     if path.endswith(".pkl"):
         with open(path, "rb") as f:
             obj = pickle.load(f)
@@ -216,6 +245,7 @@ def load_generator_checkpoint(path: str, generator: torch.nn.Module,
         n_blocks = sum(1 for k in template if k.endswith(".conv_0.weight"))
         candidates = [
             ("as-is", dict(sd)),
+            ("SPADE layout", state_dict_from_spade(sd)),
             ("SPADE name map", remap_state_dict(sd, spade_block_name_map(n_blocks))),
         ]
     reports = []

@@ -38,9 +38,19 @@ before the launch, how a launch meets that bound:
   16-byte aligned; otherwise a scalar variant of the same kernel (e.g. β =
   ``gb[..., 12:]`` with C = 12).
 
-The kernel is compiled by ``nvcc`` for ``sm_90a`` at first use into
-``build/s2p_tpu_torch/`` beside the package, named by the hash of its source
-and flags so that an edited source is rebuilt, and loaded with ``ctypes``.
+``spade_norm`` is SPADE's modulation with given per-channel statistics,
+``(x·a + b)·(1 + γ) + β`` (GauGAN's generator at inference, whose batch
+norm reads its running statistics), from ``s2p_tpu_torch/csrc/spade_norm.cu``;
+it replaces no TPU kernel (the JAX package has no SPADE generator). One pass,
+bound by bytes like the MAT norm's forward (4 elements per entry), with no
+gradient; ``spade_norm_plan`` sets its channel tile, threads and grid, and
+``spade_norm_plain`` is its plain version.
+
+Each kernel source is compiled by ``nvcc`` for ``sm_90a`` at its first use
+into ``build/s2p_tpu_torch/`` beside the package, named by the hash of its
+source, the headers beside it and the flags so that an edited source is
+rebuilt, and loaded with ``ctypes``: a program that never calls
+``spade_norm`` never builds it.
 """
 
 from __future__ import annotations
@@ -59,6 +69,7 @@ from torch.autograd.function import once_differentiable
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "fused_mat_norm.cu"
+SPADE_SOURCE = _PKG / "csrc" / "spade_norm.cu"
 BUILD_DIR = _PKG.parent / "build" / "s2p_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -84,22 +95,25 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def build() -> Path:
-    """Compile the kernel library if this source and these flags have not
-    been built yet; returns the path of the shared library."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"fused_mat_norm_{digest.hexdigest()[:16]}.so"
+def build(source: Path = SOURCE) -> Path:
+    """Compile ``source`` into a shared library if this source, the headers
+    beside it (``csrc/*.cuh``) and these flags have not been built yet;
+    returns the path of the library."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    lib = BUILD_DIR / f"{source.stem}_{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
                        check=True, capture_output=True, text=True)
         os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
     except subprocess.CalledProcessError as err:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{err.stderr}") from err
+        raise RuntimeError(f"nvcc failed on {source}:\n{err.stderr}") from err
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
@@ -428,3 +442,121 @@ def fused_mat_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 fused_mat_norm.launches = 0
 fused_mat_norm_bwd.launches = 0
+
+
+# -- SPADE's modulation with given statistics ---------------------------------
+
+SPADE_THREADS = 256  # the most threads a block takes (kMaxThreads in spade_norm.cu)
+SPADE_UNROLL = 2  # pixels a thread loads before it stores (kUnroll)
+SPADE_BLOCKS_PER_SM = 8  # a grid of this many blocks an SM at most (2,048 threads)
+
+
+@functools.cache
+def load_spade_library() -> ctypes.CDLL:
+    """Build (if needed) and load the SPADE-norm library."""
+    lib = ctypes.CDLL(str(build(SPADE_SOURCE)))
+    fn = lib.s2p_spade_norm
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+                   + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@dataclass(frozen=True)
+class SpadeNormPlan:
+    """How one SPADE-norm launch covers its tensors (see ``spade_norm.cu``)."""
+    vec: bool  # 16-byte loads and stores
+    lanes: int  # threads that cover one pixel's channel tile
+    threads: int  # threads of a block: whole rows of ``lanes``
+    c_tiles: int  # channel tiles (the grid's y)
+    grid: int  # blocks over the pixels (the grid's x)
+
+
+@functools.cache
+def spade_norm_plan(pixels: int, C: int, dtype: torch.dtype, vec_ok: bool,
+                    sms: int) -> SpadeNormPlan:
+    """The launch plan of one ``spade_norm`` call over ``pixels`` = B·H·W
+    pixels of C channels: the vector path when C is a multiple of a 16-byte
+    vector and ``vec_ok`` (every base pointer and stride 16-byte aligned);
+    a channel tile of at most ``SPADE_THREADS`` threads; as many rows of
+    tiles as fit in a block; and blocks enough for every pixel at
+    ``SPADE_UNROLL`` a thread, at most ``SPADE_BLOCKS_PER_SM`` an SM over
+    the tiles (the kernel loops over the rest)."""
+    width = 16 // dtype.itemsize
+    vec = vec_ok and C % width == 0
+    vectors = C // width if vec else C
+    lanes = min(vectors, SPADE_THREADS)
+    threads = lanes * (SPADE_THREADS // lanes)
+    c_tiles = -(-vectors // lanes)
+    rows = threads // lanes
+    cap = max(1, SPADE_BLOCKS_PER_SM * sms // c_tiles)
+    grid = max(1, min(-(-pixels // (rows * SPADE_UNROLL)), cap))
+    return SpadeNormPlan(vec=vec, lanes=lanes, threads=threads, c_tiles=c_tiles, grid=grid)
+
+
+def spade_norm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                     scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """``(x·scale + shift)·(1 + gamma) + beta`` over NHWC, scale and shift
+    ``[C]``: computed in float32 (float64 for float64 inputs) and cast back
+    to x's type, as the kernel does."""
+    out = (_acc(x) * _acc(scale) + _acc(shift)) * (1.0 + _acc(gamma)) + _acc(beta)
+    return out.to(x.dtype)
+
+
+def _launch_spade(x, gamma, beta, scale, shift):
+    for name, t in (("gamma", gamma), ("beta", beta)):
+        if t.device != x.device or t.dtype != x.dtype or t.shape != x.shape:
+            raise ValueError(f"spade_norm: {name} is {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}, x is {x.dtype} {tuple(x.shape)} on {x.device}")
+    if x.dim() != 4 or x.dtype not in _DTYPES or not x.is_contiguous():
+        raise ValueError(f"spade_norm: x must be contiguous 4-D float32/bfloat16 NHWC, got "
+                         f"{x.dtype} {tuple(x.shape)} strides {x.stride()}")
+    B, H, W, C = x.shape
+    for name, t in (("scale", scale), ("shift", shift)):
+        if (t.dtype != torch.float32 or t.shape != (C,) or not t.is_contiguous()
+                or t.device != x.device):
+            raise ValueError(f"spade_norm: {name} must be contiguous float32 ({C},) on "
+                             f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    g_b, g_p = _batch_pixel_strides(gamma, "gamma")
+    b_b, b_p = _batch_pixel_strides(beta, "beta")
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    bits = x.data_ptr() | gamma.data_ptr() | beta.data_ptr()
+    for s in (g_b, g_p, b_b, b_p):
+        bits |= s * x.element_size()
+    plan = spade_norm_plan(B * H * W, C, x.dtype, bits % 16 == 0, _sm_count(x.device.index))
+    err = _on_stream(x, load_spade_library().s2p_spade_norm,
+                     x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), scale.data_ptr(),
+                     shift.data_ptr(), out.data_ptr(), B * H * W, H * W, C, g_b, g_p, b_b, b_p,
+                     _DTYPES[x.dtype], int(plan.vec), plan.lanes, plan.threads, plan.grid,
+                     plan.c_tiles)
+    if err != 0:
+        raise RuntimeError(f"spade_norm: kernel launch failed with cudaError {err}")
+    spade_norm.launches += 1
+    return out
+
+
+def spade_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """``(x·scale + shift)·(1 + gamma) + beta`` for NHWC ``[B, H, W, C]``
+    tensors in float32 or bfloat16 with f32 ``scale``/``shift`` ``[C]``. On
+    the card: the CUDA kernel, for inference only (it raises where autograd
+    would record: SPADE's generator is not trained in the port). x must be
+    contiguous; gamma and beta need unit channel stride only (they may be
+    channel slices of one wider tensor). On the CPU: the plain version."""
+    if x.device.type == "cpu":
+        return spade_norm_plain(x, gamma, beta, scale, shift)
+    if x.device.type != "cuda":
+        raise ValueError(f"spade_norm: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, gamma, beta, scale, shift)):
+        raise RuntimeError("spade_norm has no backward: call it under torch.no_grad()")
+    return _launch_spade(x, gamma, beta, scale, shift)
+
+
+spade_norm.launches = 0

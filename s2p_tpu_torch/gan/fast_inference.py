@@ -27,20 +27,31 @@ activations quantized per sample at run time, an int32 product
 (``torch._int_mm``, a library GEMM: the JAX package leaves this conv to XLA,
 not to a Pallas kernel) and an f32 dequantization. Its frames differ from
 the float path's by 8-bit quantization noise.
+
+A ``SPADEGenerator`` (``netG=spade``) renders through ``synthesize_fast``:
+its condition is a label map that varies over space, so the constant-map
+shortcut does not apply, but the block-level fusion does: each of a
+block's 2–3 norms sees the same map, so one wide shared conv (split per
+norm) and the fused γ‖β conv per norm, then the SPADE-norm kernel with the
+running statistics folded at fuse time. The one-hot maps are made on the
+device from the label ids, per resolution (spans ``s2p.spade.seg`` and
+``s2p.spade.onehot``), with their channels padded to a multiple of 8.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from s2p_tpu_torch.gan.generator import CL, S2PGenerator, mat_norm_nchw, upsample_nearest
+from s2p_tpu_torch.gan.generator import (CL, S2PGenerator, SPADEGenerator, label_onehot,
+                                         mat_norm_nchw, spade_norm_nchw, upsample_nearest)
 from s2p_tpu_torch.utils.profiling import annotate
 
 Params = Dict[str, Any]
 NORMS = ("norm_0", "norm_1", "norm_s")
+LABEL_ALIGN = 8  # one-hot channels padded to a multiple of this: cuDNN's NHWC tensor-core convs
 
 
 def _cl(t: torch.Tensor) -> torch.Tensor:
@@ -147,7 +158,7 @@ def _norm_params(norm: torch.nn.Module, S: int, gb_int8: bool = False) -> Params
 
 
 @torch.no_grad()
-def fuse_fast_params(gen: S2PGenerator, block_level: bool = True,
+def fuse_fast_params(gen: S2PGenerator | SPADEGenerator, block_level: bool = True,
                      gb_int8: bool = False) -> Params:
     """Precompute, once and outside the rollout loop, the fused operands the
     fast path reads beside ``gen``'s own layers.
@@ -162,7 +173,14 @@ def fuse_fast_params(gen: S2PGenerator, block_level: bool = True,
     fusions: the block-level concat holds a 2–3× wider hidden map, which
     costs memory at very large batch. ``gb_int8`` adds, per norm,
     ``mlp_gb_q``: the γ‖β weight quantized to int8 for the opt-in int8
-    modulation; the float operands stay, so the float path is unchanged."""
+    modulation; the float operands stay, so the float path is unchanged.
+
+    A ``SPADEGenerator`` gets its own operands (``_fuse_spade``): block-level
+    fusion only, no int8."""
+    if isinstance(gen, SPADEGenerator):
+        if gb_int8 or not block_level:
+            raise ValueError("the SPADE fast path runs block-level fusion in float only")
+        return _fuse_spade(gen)
     if gen.mat_mode != "mat":
         raise ValueError(f"the fast path specializes the MAT layout, not {gen.mat_mode!r}")
     with annotate("s2p.fast.fuse"):
@@ -224,8 +242,9 @@ def _conv_gb_int8(h: torch.Tensor, q: Params, bias: torch.Tensor) -> torch.Tenso
 def _modulate(x: torch.Tensor, h: torch.Tensor, p: Params, gb_int8: bool = False
               ) -> torch.Tensor:
     """γ‖β conv over the norm's hidden map ``h`` (on int8 operands with
-    ``gb_int8``), then the modulated instance norm, with γ and β read in
-    place as the conv output's two channel halves."""
+    ``gb_int8``), then the modulated norm (instance statistics, or the
+    folded running statistics ``scale``/``shift`` of a SPADE batch norm),
+    with γ and β read in place as the conv output's two channel halves."""
     if gb_int8 and "mlp_gb_q" not in p:
         raise ValueError("gb_int8=True needs the int8 operands: fuse the parameters with "
                          "fuse_fast_params(gen, gb_int8=True)")
@@ -235,6 +254,8 @@ def _modulate(x: torch.Tensor, h: torch.Tensor, p: Params, gb_int8: bool = False
         else:
             gb = _cl(F.conv2d(_cl(h), p["mlp_gb"]["weight"], p["mlp_gb"]["bias"], padding=1))
     C = gb.shape[1] // 2
+    if "scale" in p:  # SPADE's batch norm, its running statistics folded
+        return spade_norm_nchw(x, gb[:, :C], gb[:, C:], p["scale"], p["shift"])
     return mat_norm_nchw(x, gb[:, :C], gb[:, C:])
 
 
@@ -261,6 +282,15 @@ def _block_hidden_maps(image_feat: torch.Tensor, t_blk: torch.Tensor, p: Params,
         return list(torch.split(h, widths, dim=1))
 
 
+def _res_block(x: torch.Tensor, block: torch.nn.Module, norm) -> torch.Tensor:
+    """``MATResBlock.forward`` with ``norm(x, name)`` in place of the block's
+    norms; ``block`` supplies the res-block convs."""
+    h = block.conv_0(F.leaky_relu(norm(x, "norm_0"), 0.2))
+    h = block.conv_1(F.leaky_relu(norm(h, "norm_1"), 0.2))
+    s = block.conv_s(norm(x, "norm_s")) if hasattr(block, "conv_s") else x
+    return s + h
+
+
 def _res_block_fast(x: torch.Tensor, e: torch.Tensor, image_feat: torch.Tensor,
                     block: torch.nn.Module, p: Params,
                     t_blk: Optional[torch.Tensor] = None, gb_int8: bool = False
@@ -273,10 +303,7 @@ def _res_block_fast(x: torch.Tensor, e: torch.Tensor, image_feat: torch.Tensor,
         mat_norm = lambda x, n: _modulate(x, hmaps[n], p[n], gb_int8)
     else:
         mat_norm = lambda x, n: _mat_norm_fast(x, e, image_feat, p[n], gb_int8)
-    h = block.conv_0(F.leaky_relu(mat_norm(x, "norm_0"), 0.2))
-    h = block.conv_1(F.leaky_relu(mat_norm(h, "norm_1"), 0.2))
-    s = block.conv_s(mat_norm(x, "norm_s")) if "norm_s" in p else x
-    return s + h
+    return _res_block(x, block, mat_norm)
 
 
 @torch.no_grad()
@@ -336,3 +363,105 @@ def generate_rollout_fast(gen: S2PGenerator, init_image: torch.Tensor,
         img = fast_apply(gen, params, s, img, gb_int8)
         frames.append(img)
     return torch.stack(frames)
+
+
+# -- netG=spade ------------------------------------------------------------------
+
+def _pad_inputs(weight: torch.Tensor, channels: int) -> torch.Tensor:
+    """A conv weight ``[O, I, k, k]`` with its inputs zero-padded to
+    ``channels``, in channels_last memory."""
+    pad = weight.new_zeros(weight.shape[0], channels - weight.shape[1], *weight.shape[2:])
+    return _cl(torch.cat([weight, pad], 1))
+
+
+def _fuse_spade(gen: SPADEGenerator) -> Params:
+    """A ``SPADEGenerator``'s fast-path operands: per block ``shared_cat``
+    (its norms' ``mlp_shared`` as ONE conv over the label map, their widths
+    in ``norms`` order) and per norm ``mlp_gb`` (γ and β convs as one) and,
+    for a batch norm, the folded f32 statistics ``scale``/``shift``; ``fc``;
+    and ``label_channels``, the one-hot width padded to ``LABEL_ALIGN``
+    (the padded weights' extra inputs are zero, so the sums are unchanged)."""
+    with annotate("s2p.fast.fuse"):
+        cp = -(-gen.semantic_nc // LABEL_ALIGN) * LABEL_ALIGN
+        blocks: List[Params] = []
+        for name, *_ in gen.schedule:
+            block = getattr(gen, name)
+            norms = [n for n in NORMS if hasattr(block, n)]
+            bp: Params = dict(norms=norms)
+            for n in norms:
+                m = getattr(block, n)
+                bp[n] = dict(
+                    mlp_shared_bias=m.mlp_shared.bias,
+                    mlp_gb=dict(weight=_cl(torch.cat([m.mlp_gamma.weight, m.mlp_beta.weight], 0)),
+                                bias=torch.cat([m.mlp_gamma.bias, m.mlp_beta.bias], 0)))
+                if m.param_free == "batch":
+                    bp[n]["scale"], bp[n]["shift"] = m.param_free_norm.folded()
+            bp["shared_cat"] = dict(
+                weight=_pad_inputs(torch.cat([getattr(block, n).mlp_shared.weight
+                                              for n in norms], 0), cp),
+                bias=torch.cat([bp[n]["mlp_shared_bias"] for n in norms], 0))
+            blocks.append(bp)
+        return dict(blocks=blocks, label_channels=cp,
+                    fc=dict(weight=_pad_inputs(gen.fc.weight, cp), bias=gen.fc.bias))
+
+
+def downsample_ids(ids: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    """Label ids ``[B, H, W]`` nearest-resized to ``hw`` by PyTorch's index
+    rule, ``src = floor(dst·in/out)``, which at an integer ratio s is every
+    s-th id from the first (a view): the ids of ``F.interpolate(onehot,
+    hw, mode="nearest")``'s one-hot map."""
+    (H, W), (h, w) = ids.shape[1:], hw
+    if H % h or W % w:
+        raise ValueError(f"downsample_ids: {H}×{W} → {h}×{w} is not an integer ratio")
+    return ids[:, :: H // h, :: W // w]
+
+
+@torch.no_grad()
+def synthesize_fast(gen: SPADEGenerator, label_ids: torch.Tensor,
+                    params: Optional[Params] = None) -> torch.Tensor:
+    """The SPADE generator's fast path: integer label ids ``[B, H, W]``
+    (H×W = ``gen.image_hw``) → frames ``[B, H, W, 3]``, the module path's
+    ``gen(label_onehot(ids, gen.semantic_nc))`` up to float re-association.
+    ``params`` = ``fuse_fast_params(gen)``, fused here when not given. Per
+    resolution the ids are downsampled and scattered into a one-hot map on
+    the device, once; per block ONE shared conv over it gives every norm's
+    hidden map; per norm the fused γ‖β conv and the modulation kernel. The
+    res-block convs, upsampling and head are ``gen``'s own layers."""
+    if not isinstance(gen, SPADEGenerator):
+        raise TypeError(f"synthesize_fast takes a SPADEGenerator, not {type(gen).__name__}")
+    if tuple(label_ids.shape[1:]) != gen.image_hw:
+        raise ValueError(f"label ids {tuple(label_ids.shape)}: the generator renders "
+                         f"{gen.image_hw}")
+    params = params or fuse_fast_params(gen)
+    dtype, cp = gen.fc.weight.dtype, params["label_channels"]
+    maps: Dict[Tuple[int, int], torch.Tensor] = {}
+
+    def seg_at(hw: Tuple[int, int]) -> torch.Tensor:
+        if hw not in maps:
+            with annotate("s2p.spade.seg"):
+                ids = downsample_ids(label_ids, hw)
+            with annotate("s2p.spade.onehot"):
+                maps[hw] = label_onehot(ids, cp, dtype)
+        return maps[hw]
+
+    with annotate("s2p.gen.forward"):
+        with annotate("s2p.gen.embed"):
+            fc = params["fc"]
+            x = F.conv2d(seg_at(gen.latent_hw), fc["weight"], fc["bias"], padding=1)
+        for i, (name, _, _, up) in enumerate(gen.schedule):
+            if up:
+                with annotate("s2p.gen.upsample"):
+                    x = F.interpolate(x, scale_factor=2, mode="nearest")
+            p = params["blocks"][i]
+            with annotate(f"s2p.gen.block_{i}"):
+                with annotate("s2p.mat.hidden"):
+                    sc = p["shared_cat"]
+                    h = F.conv2d(seg_at(tuple(x.shape[2:])), sc["weight"], sc["bias"],
+                                 padding=1).relu_()
+                    widths = [p[n]["mlp_shared_bias"].shape[0] for n in p["norms"]]
+                    hmaps = dict(zip(p["norms"], torch.split(h, widths, dim=1)))
+                x = _res_block(x, getattr(gen, name),
+                               lambda t, n: _modulate(t, hmaps[n], p[n]))
+        with annotate("s2p.gen.head"):
+            x = torch.tanh(gen.conv_img(F.leaky_relu(x, 0.2)))
+        return x.permute(0, 2, 3, 1)

@@ -11,20 +11,27 @@ tensors are NCHW in ``channels_last`` memory: convolutions take them as they
 are, and ``permute(0, 2, 3, 1)`` of one is the NHWC-contiguous view that the
 fused MAT-norm kernel (``cuda_kernels.fused_mat_norm``) reads at no cost.
 
+``SPADEGenerator`` (``netG=spade``) is GauGAN, the generator S2P's blocks
+descend from (NVlabs/SPADE, ``models/networks/generator.py``): the same
+residual block (``MATResBlock``, whose norm is a parameter) with SPADE norms
+conditioned on a semantic label map, under SPADE's own module names.
+
 Each layer boundary is a span (``utils.profiling.annotate``, names under
-``s2p.gen.`` and ``s2p.mat.``) that a running profiler records.
+``s2p.gen.``, ``s2p.mat.`` and ``s2p.spade.``) that a running profiler
+records.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+import re
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from s2p_tpu_torch.gan.cuda_kernels import fused_mat_norm
+from s2p_tpu_torch.gan.cuda_kernels import fused_mat_norm, spade_norm
 from s2p_tpu_torch.utils.profiling import annotate
 
 CL = torch.channels_last
@@ -87,6 +94,18 @@ def mat_norm_nchw(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> t
     return out.permute(0, 3, 1, 2)
 
 
+def spade_norm_nchw(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                    scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """``(x·scale + shift) * (1 + gamma) + beta`` on NCHW tensors, with f32
+    per-channel ``scale``/``shift`` ``[C]`` (a batch norm's statistics,
+    folded), through the SPADE-norm kernel's NHWC views."""
+    nhwc = lambda t: t.permute(0, 2, 3, 1)
+    with annotate("s2p.mat.norm"):
+        out = spade_norm(nhwc(x.contiguous(memory_format=CL)), nhwc(gamma), nhwc(beta),
+                         scale, shift)
+    return out.permute(0, 3, 1, 2)
+
+
 def conv3x3(c_in: int, c_out: int, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(c_in, c_out, 3, stride=stride, padding=1)
 
@@ -137,14 +156,18 @@ class MATNorm(nn.Module):
 
 class MATResBlock(nn.Module):
     """SPADE-style residual block with MAT norms: norm → lrelu(0.2) →
-    conv3x3 → norm → lrelu → conv3x3, plus a MAT-normed 1×1 shortcut when
-    the channel count changes."""
+    conv3x3 → norm → lrelu → conv3x3, plus a normed 1×1 shortcut when the
+    channel count changes. ``norm`` (features → module) builds its norms,
+    MAT norms by default; each norm takes ``x`` and the block's condition
+    ``*cond`` (the state map and image feature of a MAT norm, the label map
+    of a SPADE norm)."""
 
-    def __init__(self, in_features: int, out_features: int, state_ch: int, image_ch: int,
-                 mat_hidden: int = 128, mat_mode: str = "mat"):
+    def __init__(self, in_features: int, out_features: int, state_ch: int = 0,
+                 image_ch: int = 0, mat_hidden: int = 128, mat_mode: str = "mat",
+                 norm: Callable[[int], nn.Module] | None = None):
         super().__init__()
         fmid = min(in_features, out_features)
-        norm = lambda c: MATNorm(c, state_ch, image_ch, mat_hidden, mat_mode)
+        norm = norm or (lambda c: MATNorm(c, state_ch, image_ch, mat_hidden, mat_mode))
         self.norm_0 = norm(in_features)
         self.conv_0 = conv3x3(in_features, fmid)
         self.norm_1 = norm(fmid)
@@ -153,14 +176,13 @@ class MATResBlock(nn.Module):
             self.norm_s = norm(in_features)
             self.conv_s = nn.Conv2d(in_features, out_features, 1, bias=False)
 
-    def forward(self, x: torch.Tensor, state_map: torch.Tensor,
-                image_feat: torch.Tensor) -> torch.Tensor:
-        h = F.leaky_relu(self.norm_0(x, state_map, image_feat), 0.2)
+    def forward(self, x: torch.Tensor, *cond: torch.Tensor) -> torch.Tensor:
+        h = F.leaky_relu(self.norm_0(x, *cond), 0.2)
         h = self.conv_0(h)
-        h = F.leaky_relu(self.norm_1(h, state_map, image_feat), 0.2)
+        h = F.leaky_relu(self.norm_1(h, *cond), 0.2)
         h = self.conv_1(h)
         if hasattr(self, "conv_s"):
-            s = self.conv_s(self.norm_s(x, state_map, image_feat))
+            s = self.conv_s(self.norm_s(x, *cond))
         else:
             s = x
         return s + h
@@ -286,6 +308,172 @@ class S2PGenerator(nn.Module):
                 if i < len(sizes) - 1:
                     with annotate("s2p.gen.upsample"):
                         x = upsample_nearest(x, sizes[i + 1])
+            with annotate("s2p.gen.head"):
+                x = torch.tanh(self.conv_img(F.leaky_relu(x, 0.2)))
+            return x.permute(0, 2, 3, 1)
+
+
+# -- netG=spade: GauGAN ---------------------------------------------------------
+
+UPSAMPLING_LAYERS = 5  # SPADE's num_upsampling_layers "normal"
+
+
+def parse_norm_g(norm_g: str) -> str:
+    """The param-free norm of SPADE's ``norm_G`` string ('batch' or
+    'instance'): ``[spectral]spade<type>3x3`` with type ``syncbatch``,
+    ``batch`` or ``instance``, as ``normalization.py::SPADE`` parses it (the
+    port takes 3×3 convs only). ``spectral`` wraps the res-block convs in
+    spectral norm, which a checkpoint's weights carry folded here
+    (``convert.state_dict_from_spade``)."""
+    m = re.fullmatch(r"(?:spectral)?spade(syncbatch|batch|instance)3x3", norm_g)
+    if m is None:
+        raise ValueError(f"norm_G {norm_g!r}: the port runs [spectral]spade"
+                         "{syncbatch,batch,instance}3x3")
+    return "instance" if m.group(1) == "instance" else "batch"
+
+
+def label_onehot(ids: torch.Tensor, channels: int, dtype: torch.dtype = torch.float32
+                 ) -> torch.Tensor:
+    """Integer label ids ``[B, H, W]`` as the one-hot map ``[B, channels, H,
+    W]`` in channels_last memory, as SPADE's ``preprocess_input`` scatters
+    them (``channels`` may exceed the ids' range: the rest stay 0)."""
+    B, H, W = ids.shape
+    out = torch.zeros(B, H, W, channels, dtype=dtype, device=ids.device)
+    out.scatter_(3, ids.long().unsqueeze(3), 1)
+    return out.permute(0, 3, 1, 2)
+
+
+class RunningStats(nn.Module):
+    """The param-free batch norm of a SPADE norm at inference: per-channel
+    ``running_mean`` and ``running_var`` (SPADE's names), kept in float32
+    whatever type the module is cast to, as a bf16 deployment keeps a batch
+    norm's statistics. ``folded()`` gives ``x·a + b`` for ``(x − mean) /
+    sqrt(var + eps)``."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def _apply(self, fn, recurse=True):
+        super()._apply(fn, recurse)
+        for k in ("running_mean", "running_var"):
+            self._buffers[k] = self._buffers[k].float()
+        return self
+
+    def folded(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(a, b), f32 ``[C]``: a = rsqrt(var + eps), b = −mean·a."""
+        a = torch.rsqrt(self.running_var.float() + self.eps)
+        return a, -self.running_mean.float() * a
+
+
+class SPADENorm(nn.Module):
+    """SPADE's norm (``normalization.py::SPADE``): a param-free norm of x
+    (``batch``, from its running statistics, or ``instance``) modulated by
+    spatial γ/β convolved from the label map, nearest-resized to x's size.
+    ``mlp_shared`` is SPADE's ``mlp_shared.0`` (its ReLU is applied here)."""
+
+    def __init__(self, features: int, label_nc: int, hidden: int = 128,
+                 param_free: str = "batch"):
+        super().__init__()
+        if param_free not in ("batch", "instance"):
+            raise ValueError(f"param_free {param_free!r}: 'batch' or 'instance'")
+        self.param_free = param_free
+        if param_free == "batch":
+            self.param_free_norm = RunningStats(features)
+        self.mlp_shared = conv3x3(label_nc, hidden)
+        self.mlp_gamma = conv3x3(hidden, features)
+        self.mlp_beta = conv3x3(hidden, features)
+
+    def forward(self, x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+        with annotate("s2p.spade.seg"):
+            seg = F.interpolate(seg, size=x.shape[2:], mode="nearest")
+        with annotate("s2p.mat.hidden"):
+            h = F.relu(self.mlp_shared(seg))
+        with annotate("s2p.mat.gb"):
+            gamma, beta = self.mlp_gamma(h), self.mlp_beta(h)
+        if self.param_free == "instance":
+            return mat_norm_nchw(x, gamma, beta)
+        return spade_norm_nchw(x, gamma, beta, *self.param_free_norm.folded())
+
+
+class SPADEGenerator(nn.Module):
+    """``netG=spade``: GauGAN (Park et al., CVPR 2019, arXiv:1903.07291;
+    NVlabs/SPADE ``models/networks/generator.py::SPADEGenerator``), non-VAE.
+
+    ``x = fc(seg at sh×sw)`` (a 3×3 conv, semantic_nc → 16·ngf), then the
+    res blocks ``head_0`` (16·ngf), ``G_middle_0``, ``G_middle_1`` (16·ngf)
+    and ``up_0..up_3`` (8, 4, 2, 1 ·ngf), each after a ×2 nearest upsample where SPADE has one, every norm a
+    ``SPADENorm`` of the label map; ``tanh(conv_img(lrelu(x, 0.2)))``.
+    The options are SPADE's (``label_nc``, ``contain_dontcare_label``,
+    ``no_instance``, ``ngf``, ``crop_size``, ``aspect_ratio``,
+    ``num_upsampling_layers``, ``norm_G``, ``nhidden``, ``use_vae``);
+    ``semantic_nc`` = label_nc + dontcare (+ an edge map, not ported: the
+    port takes ``no_instance=True`` only). Module names are SPADE's, so a
+    SPADE checkpoint loads after ``convert.state_dict_from_spade`` (spectral
+    norm folded).
+
+    ``forward(seg)`` takes SPADE's ``input_semantics``, the one-hot map
+    ``[B, semantic_nc, H, W]`` (``label_onehot``), and returns frames ``[B,
+    H, W, 3]`` in [-1, 1]. It is the module path, for inference (the
+    batch-norm modulation has no backward); the fast path is
+    ``fast_inference.synthesize_fast``. The parameters start at PyTorch's
+    default init: a caller loads weights (a SPADE checkpoint through
+    ``convert.state_dict_from_spade``, or seeded ones). The module is built
+    on ``device`` in channels_last memory."""
+
+    def __init__(self, label_nc: int = 150, contain_dontcare_label: bool = True,
+                 no_instance: bool = True, ngf: int = 64, crop_size: int = 256,
+                 aspect_ratio: float = 1.0, num_upsampling_layers: str = "normal",
+                 norm_G: str = "spectralspadesyncbatch3x3", nhidden: int = 128,
+                 use_vae: bool = False, out_channels: int = 3,
+                 device: str | torch.device = "cuda"):
+        super().__init__()
+        if use_vae:
+            raise ValueError("use_vae: the port has no SPADE image encoder (non-VAE only)")
+        if not no_instance:
+            raise ValueError("no_instance=False: the port takes no instance edge map")
+        if num_upsampling_layers != "normal":
+            raise ValueError(f"num_upsampling_layers {num_upsampling_layers!r}: the port "
+                             "takes SPADE's 'normal' schedule only")
+        self.param_free = parse_norm_g(norm_G)
+        self.semantic_nc = label_nc + int(contain_dontcare_label)
+        sw = crop_size // 2 ** UPSAMPLING_LAYERS
+        self.latent_hw = (round(sw / aspect_ratio), sw)  # SPADE's (sh, sw)
+        nf = ngf
+        # (name, fin, fout, ×2 upsample before it), in SPADE's order
+        sched = [("head_0", 16 * nf, 16 * nf, False), ("G_middle_0", 16 * nf, 16 * nf, True),
+                 ("G_middle_1", 16 * nf, 16 * nf, False)]
+        sched += [(f"up_{k}", c, c // 2, True) for k, c in enumerate((16 * nf, 8 * nf, 4 * nf,
+                                                                      2 * nf))]
+        self.schedule = sched
+        self.fc = conv3x3(self.semantic_nc, 16 * nf)
+        norm = lambda c: SPADENorm(c, self.semantic_nc, nhidden, self.param_free)
+        for name, fin, fout, _ in sched:
+            self.add_module(name, MATResBlock(fin, fout, norm=norm))
+        self.conv_img = conv3x3(sched[-1][2], out_channels)
+        self.to(device=device, memory_format=CL)
+
+    @property
+    def image_hw(self) -> Tuple[int, int]:
+        """The output's (H, W): the latent grid doubled at every upsample."""
+        ups = sum(up for *_, up in self.schedule)
+        return self.latent_hw[0] * 2 ** ups, self.latent_hw[1] * 2 ** ups
+
+    def forward(self, seg: torch.Tensor) -> torch.Tensor:
+        """seg ``[B, semantic_nc, H, W]`` one-hot → frames ``[B, H, W, 3]``."""
+        with annotate("s2p.gen.forward"):
+            with annotate("s2p.gen.embed"):
+                with annotate("s2p.spade.seg"):
+                    x = F.interpolate(seg, size=self.latent_hw, mode="nearest")
+                x = self.fc(x)
+            for i, (name, _, _, up) in enumerate(self.schedule):
+                if up:
+                    with annotate("s2p.gen.upsample"):
+                        x = F.interpolate(x, scale_factor=2, mode="nearest")
+                with annotate(f"s2p.gen.block_{i}"):
+                    x = getattr(self, name)(x, seg)
             with annotate("s2p.gen.head"):
                 x = torch.tanh(self.conv_img(F.leaky_relu(x, 0.2)))
             return x.permute(0, 2, 3, 1)
