@@ -15,16 +15,20 @@ Phases, each of which must pass (the script stops at the first failure):
    grid, which must not take 16-byte loads, at shapes that run it resident
    and streaming, each whole and split over a cluster), the streaming path
    at 256² × 64 (batch 2, which must stream) and a |mean| ≫ std input
-   (split over a cluster both resident and streaming at 32²). Prints each
-   shape's launch plan (path, cluster
-   size k, channel tile, vector or scalar) and times kernel, plain version
+   (split over a cluster both resident and streaming at 32²); every case
+   without and with the γ‖β conv's bias folded into the kernel
+   (``gb_bias``), each launch with the bias counted in ``bias_launches``.
+   Prints each shape's launch plan (path, cluster
+   size k, channel tile, vector or scalar) and times kernel (also with the
+   bias folded), plain version
    and the ``F.instance_norm`` yardstick per shape beside the bound, PR 2's
    kernel time and the wrapper's host time per call.
 4. slice parity: a full-width cheetah generator (64px, ngf=64, state dim
    17, seeded random weights) runs ``generate_rollout_fast`` and
    ``generate_rollout`` (seq_len 5, batch 4, f32, TF32 off) on the card and
    on the CPU (plain norm); the frames must agree to 5e-3, and the kernel
-   must have launched 13 times per step.
+   must have launched 13 times per step, every launch of the fast path with
+   the γ‖β bias folded and none of the module path's.
 5. serving throughput (a main path): the same generator in bf16 runs
    ``generate_rollout_fast`` at batch 256 × seq_len 8; prints frames/sec and
    checks the frames are finite. Every launch count is reset to 0 just
@@ -290,15 +294,18 @@ TP world's batch of 2·world, f32, forward.
 26. GauGAN (a main path): the SPADE-norm kernel against its plain version
     at the 18 norm shapes of one pass (ADE20K 256², ngf 64; batch 32, f32
     and bf16, γ and β as the halves of one γ‖β tensor and as contiguous
-    tensors, plus a scalar-path shape off the vector grid), with its plan
-    and its device time beside its bytes-bound time and the plain
-    version's per shape; then ``synthesize_fast`` at batch 32 in bf16 with
-    the ``spade-ade256-b32`` cell's weights and maps: a pass must launch
-    the kernel 18 times (count reset just before), and its frames must
-    hold to the module path in f32 (TF32 off) within the cell's limits.
+    tensors, plus a scalar-path shape off the vector grid), without and
+    with the γ‖β bias folded, with its plan and its device time (also with
+    the bias folded) beside its bytes-bound time and the plain version's
+    per shape; then ``synthesize_fast`` at batch 32 in bf16 with the
+    ``spade-ade256-b32`` cell's weights and maps: a pass must launch the
+    kernel 18 times, each with the bias folded (counts reset just before),
+    the module path none with a bias, and its frames must hold to the
+    module path in f32 (TF32 off) within the cell's limits.
 
-``--ab DIR`` runs phases 1 and 2, then times the MAT-norm kernels against
-those of the checkout in DIR in turns, then the two main paths end to end
+``--ab DIR`` runs phases 1 and 2, then times the norm kernels against
+those of the checkout in DIR in turns (without and with the γ‖β bias
+folded), then the two main paths end to end
 (serving frames/sec, bf16 and f32 train step), each side in processes of
 its own (``--time-paths ROOT``), in turns, and stops. ``--sweep`` runs
 phases 1 and 2, then times every launch plan of the two kernels at each
@@ -639,6 +646,15 @@ def mat_norm_inputs(batch, size, C, dtype, strided, mean=0.0, seed=0):
     return x, gb[..., :C], gb[..., C:]
 
 
+def gb_bias_like(x, seed: int = 0):
+    """A seeded γ‖β conv bias ``[2C]`` in x's type on the card, the operand
+    the fast path folds into the norm kernels (``gb_bias``)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (0.5 * torch.randn(2 * x.shape[-1], device="cuda", generator=g)).to(x.dtype)
+
+
 def phase_kernels(ck, shapes, bridge_shapes) -> dict:
     import torch
     import torch.nn.functional as F
@@ -646,19 +662,27 @@ def phase_kernels(ck, shapes, bridge_shapes) -> dict:
     max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
 
     def check(x, g, b, label):
-        out = ck.fused_mat_norm(x, g, b)
-        ref = ck.fused_mat_norm_plain(x, g, b)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs()
-        atol, rtol = (F32_TOL, 0.0) if x.dtype == torch.float32 else (BF16_TOL, BF16_TOL)
-        bad = err > atol + rtol * ref.float().abs()
-        max_err[x.dtype] = max(max_err[x.dtype], err.max().item())
-        if not torch.isfinite(out).all() or bad.any():
-            fail(f"fused_mat_norm vs plain at {label}: max |err| {err.max().item():.3g}")
+        """The kernel against its plain version, without and with a folded bias."""
+        for gb_bias in (None, gb_bias_like(x, seed=x.shape[-1])):
+            before = ck.fused_mat_norm.bias_launches
+            out = ck.fused_mat_norm(x, g, b, gb_bias=gb_bias)
+            if ck.fused_mat_norm.bias_launches - before != (gb_bias is not None):
+                fail(f"fused_mat_norm.bias_launches miscounted a launch at {label}")
+            ref = ck.fused_mat_norm_plain(x, g, b, gb_bias=gb_bias)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs()
+            atol, rtol = (F32_TOL, 0.0) if x.dtype == torch.float32 else (BF16_TOL, BF16_TOL)
+            bad = err > atol + rtol * ref.float().abs()
+            max_err[x.dtype] = max(max_err[x.dtype], err.max().item())
+            if not torch.isfinite(out).all() or bad.any():
+                fail(f"fused_mat_norm vs plain at {label}, gb_bias "
+                     f"{'folded' if gb_bias is not None else 'none'}: max |err| "
+                     f"{err.max().item():.3g}")
         return ck.forward_plan(x, g, b)
 
     launches_before = ck.fused_mat_norm.launches
-    step = dict(ms=0.0, wall_ms=0.0, plain_ms=0.0, bound_ms=0.0, instance_norm_ms=0.0)
+    step = dict(ms=0.0, bias_ms=0.0, wall_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                instance_norm_ms=0.0)
     split = False  # a main-path shape ran resident with k > 1
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
@@ -670,6 +694,8 @@ def phase_kernels(ck, shapes, bridge_shapes) -> dict:
             plan = ck.forward_plan(x, g, b)
             split |= plan.path == "resident" and plan.cluster > 1
             ms = device_ms(lambda: ck.fused_mat_norm(x, g, b))
+            bias = gb_bias_like(x, seed=C)
+            bias_ms = device_ms(lambda: ck.fused_mat_norm(x, g, b, gb_bias=bias))
             wall_ms = time_ms(lambda: ck.fused_mat_norm(x, g, b))
             plain_ms = device_ms(lambda: ck.fused_mat_norm_plain(x, g, b))
             x_nchw = x.permute(0, 3, 1, 2)  # channels_last view, as the generator holds it
@@ -679,12 +705,13 @@ def phase_kernels(ck, shapes, bridge_shapes) -> dict:
             pr2 = (f" (PR 2 {PR2_SERVING_FWD_MS[(size, C)]:.4f})"
                    if dtype == torch.bfloat16 else "")
             print(f"mat_norm {name} B={BATCH} H=W={size} C={C} x{per_step}/step "
-                  f"[{plan_label(plan)}]: kernel {ms:.4f} ms, wall per call {wall_ms:.4f} ms"
+                  f"[{plan_label(plan)}]: kernel {ms:.4f} ms (gb_bias folded {bias_ms:.4f} ms, "
+                  f"{100 * (bias_ms / ms - 1):+.2f}%), wall per call {wall_ms:.4f} ms"
                   f"{pr2}, host {us:.1f} us/call  plain {plain_ms:.4f} ms  F.instance_norm "
                   f"{inorm_ms:.4f} ms  bound {bound_ms:.4f} ms")
             if dtype == torch.bfloat16:  # the main path's working type
-                for key, v in dict(ms=ms, wall_ms=wall_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                   instance_norm_ms=inorm_ms).items():
+                for key, v in dict(ms=ms, bias_ms=bias_ms, wall_ms=wall_ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, instance_norm_ms=inorm_ms).items():
                     step[key] += per_step * v
     if not split:
         fail("no main-path shape ran the resident path split over a cluster")
@@ -706,7 +733,7 @@ def phase_kernels(ck, shapes, bridge_shapes) -> dict:
         fail(f"the scalar forward ran {sorted(scalar_paths)}, not every path and split")
     # the image bridge: the 100px chain at batch 256, γ and β contiguous (the
     # module path's separate conv outputs); timed in bf16, its working type
-    bridge = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    bridge = dict(ms=0.0, bias_ms=0.0, plain_ms=0.0, bound_ms=0.0)
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         for (size, C), per_step in sorted(bridge_shapes.items()):
@@ -717,12 +744,16 @@ def phase_kernels(ck, shapes, bridge_shapes) -> dict:
                       "matches plain")
                 continue
             ms = device_ms(lambda: ck.fused_mat_norm(x, g, b))
+            bias = gb_bias_like(x, seed=C)
+            bias_ms = device_ms(lambda: ck.fused_mat_norm(x, g, b, gb_bias=bias))
             plain_ms = device_ms(lambda: ck.fused_mat_norm_plain(x, g, b))
             bound_ms = 4 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
             print(f"mat_norm bridge {name} B={BATCH} H=W={size} C={C} x{per_step}/step "
-                  f"[{plan_label(plan)}]: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                  f"[{plan_label(plan)}]: kernel {ms:.4f} ms (gb_bias folded {bias_ms:.4f} ms, "
+                  f"{100 * (bias_ms / ms - 1):+.2f}%)  plain {plain_ms:.4f} ms  "
                   f"bound {bound_ms:.4f} ms")
-            for key, v in dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms).items():
+            for key, v in dict(ms=ms, bias_ms=bias_ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms).items():
                 bridge[key] += per_step * v
             del x, g, b
     print("mat_norm per 100px/ngf=64 bridge batch of 256 bf16 (13 norms): "
@@ -793,20 +824,24 @@ def phase_parity(ck, gen_cpu, gen_gpu) -> None:
         t0 = time.time()
         ref = fn(gen_cpu, img, states)
         cpu_s = time.time() - t0
-        before = ck.fused_mat_norm.launches
+        before = ck.fused_mat_norm.launches, ck.fused_mat_norm.bias_launches
         out = fn(gen_gpu, img.cuda(), states.cuda())
         torch.cuda.synchronize()
-        launches = ck.fused_mat_norm.launches - before
+        launches = ck.fused_mat_norm.launches - before[0]
+        bias_launches = ck.fused_mat_norm.bias_launches - before[1]
         err = (out.cpu() - ref).abs().max().item()
         print(f"parity {name}: seq_len 5 batch 4 f32, max |cuda - cpu| {err:.3g} "
               f"(tolerance {ROLLOUT_TOL}), fused_mat_norm launches {launches} "
-              f"({per_step}/step), cpu {cpu_s:.1f} s")
+              f"({per_step}/step; {bias_launches} with the γ‖β bias folded), cpu "
+              f"{cpu_s:.1f} s")
         if out.shape != (5, 4, 64, 64, 3) or not torch.isfinite(out).all():
             fail(f"{name}: bad output {tuple(out.shape)}")
         if err > ROLLOUT_TOL:
             fail(f"{name}: cuda and cpu rollouts differ by {err:.3g}")
         if launches != per_step * 5:
             fail(f"{name}: {launches} kernel launches, expected {per_step * 5}")
+        if bias_launches != (launches if fn is generate_rollout_fast else 0):
+            fail(f"{name}: {bias_launches} of {launches} launches folded the γ‖β bias")
 
 
 def phase_throughput(ck, gen, card: str, profile_dir: str | None) -> dict:
@@ -1031,69 +1066,125 @@ def phase_backward(ck, shapes) -> dict:
 
 
 def phase_ab(ck, other_dir: str, card: str) -> None:
-    """This checkout's MAT-norm kernels against another checkout's (``--ab
+    """This checkout's norm kernels against another checkout's (``--ab
     DIR``, e.g. ``git archive`` of a parent commit unpacked under build/),
-    on one card, in turns (other, this, this, other), in bf16: the forward
+    on one card, in turns (other, this, this, other): the MAT-norm forward
     at every norm shape of the serving step (batch 256, 64px, γ/β strided
-    halves of γ‖β), and the forward (saving the statistics) and the
-    backward at every shape of the training step (batch 16, 100px, γ and β
-    separate). Each side's kernel ms (device, CUDA graph replay), wall ms
-    per call and host µs per call are the means over its two turns."""
+    halves of γ‖β, bf16 and f32), of the bridge (batch 256, 100px, bf16) and
+    of the module path at batch 1 (f32), the forward (saving the statistics)
+    and the backward at every shape of the training step (batch 16, 100px,
+    γ and β separate, bf16 and f32), and ``spade_norm`` at the 18 shapes of
+    a GauGAN pass (batch 32, bf16 and f32). Each kernel runs without a bias
+    on both sides; where this checkout's wrappers take ``gb_bias``, the
+    fast paths' shapes run again with it on this side (the other side
+    without, as a checkout that adds the bias in a pass of its own runs
+    them). Each side's kernel ms (device, CUDA graph replay), wall ms per
+    call and host µs per call are the means over its two turns."""
     import importlib.util
+    import inspect
 
     import torch
+    from portbench import harness
+    from portbench.counts import spade as spade_counts
 
     from s2p_tpu_torch.gan import S2PGenerator
 
     path = os.path.join(other_dir, "s2p_tpu_torch", "gan", "cuda_kernels.py")
     spec = importlib.util.spec_from_file_location("other_cuda_kernels", path)
     other = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = other  # dataclasses look their module up there
     spec.loader.exec_module(other)
     other.load_library()
+    other.load_spade_library()
+    ck.load_spade_library()
     sides = dict(other=other, this=ck)
+    folds = "gb_bias" in inspect.signature(ck.fused_mat_norm).parameters
+    bf16, f32 = torch.bfloat16, torch.float32
 
-    def train_inputs(size, C):
-        x, g, b = mat_norm_inputs(TRAIN_BATCH, size, C, torch.bfloat16, False, mean=0.5,
-                                  seed=size + C)
-        dy = torch.randn(x.shape, device="cuda").to(torch.bfloat16)
+    def train_inputs(size, C, dtype):
+        x, g, b = mat_norm_inputs(TRAIN_BATCH, size, C, dtype, False, mean=0.5, seed=size + C)
+        dy = torch.randn(x.shape, device="cuda").to(dtype)
         _, mean, rstd = ck._plain_forward(x, g, b, 1e-5)
         return x, g, b, dy, mean.float().contiguous(), rstd.float().contiguous()
 
-    cases = []  # (path, (H, C), launches per step, inputs, call(module, inputs))
+    def fwd_inputs(batch, size, C, dtype, strided):
+        x, g, b = mat_norm_inputs(batch, size, C, dtype, strided, seed=size * C)
+        return x, g, b, gb_bias_like(x, seed=C)
+
+    def spade_inputs(h, w, c, dtype):
+        g = torch.Generator(device="cuda").manual_seed(c)
+        x = (torch.randn(SPADE_BATCH, h, w, c, generator=g, device="cuda") * 3 + 1).to(dtype)
+        gb = torch.randn(SPADE_BATCH, h, w, 2 * c, generator=g, device="cuda").to(dtype)
+        a = torch.rand(c, generator=g, device="cuda") + 0.5
+        return x, gb[..., :c], gb[..., c:], a, torch.randn(c, generator=g, device="cuda"), \
+            gb_bias_like(x, seed=c)
+
+    plain_fwd = lambda m, t: m.fused_mat_norm(*t[:3])
+    plain_spade = lambda m, t: m.spade_norm(*t[:5])
+    if folds:  # this side folds the bias, the other side runs without one
+        fold_fwd = lambda m, t: (m.fused_mat_norm(*t[:3], gb_bias=t[3]) if m is ck
+                                 else m.fused_mat_norm(*t[:3]))
+        fold_spade = lambda m, t: (m.spade_norm(*t[:5], gb_bias=t[5]) if m is ck
+                                   else m.spade_norm(*t[:5]))
+    cases = []  # (path, shape label, launches per step, inputs, call(module, inputs))
     serving = norm_shapes(S2PGenerator(STATE_DIM, seed=0, device="cpu", **FULL))
-    for (size, C), n in sorted(serving.items()):
-        cases.append(("serving fwd", (size, C), n,
-                      lambda size=size, C=C: mat_norm_inputs(BATCH, size, C, torch.bfloat16,
-                                                             True, seed=size * C),
-                      lambda m, t: m.fused_mat_norm(*t)))
     training = norm_shapes(S2PGenerator(STATE_DIM, image_size=TRAIN_SIZE, ngf=64, device="cpu"))
+    for dtype in (bf16, f32):
+        name = str(dtype).split(".")[-1]
+        for (size, C), n in sorted(serving.items()):
+            make = lambda size=size, C=C, dtype=dtype: fwd_inputs(BATCH, size, C, dtype, True)
+            cases.append((f"serving fwd {name}", f"H=W={size} C={C}", n, make, plain_fwd))
+            if folds:
+                cases.append((f"serving fwd {name}, bias folded here", f"H=W={size} C={C}", n,
+                              make, fold_fwd))
+        for (size, C), n in sorted(training.items()):
+            make = lambda size=size, C=C, dtype=dtype: train_inputs(size, C, dtype)
+            cases.append((f"train fwd {name}", f"H=W={size} C={C}", n, make,
+                          lambda m, t: m._launch_forward(t[0], t[1], t[2], 1e-5, True)))
+            cases.append((f"train bwd {name}", f"H=W={size} C={C}", n, make,
+                          lambda m, t: m.fused_mat_norm_bwd(t[3], t[0], t[1], t[4], t[5])))
     for (size, C), n in sorted(training.items()):
-        make = lambda size=size, C=C: train_inputs(size, C)
-        cases.append(("train fwd", (size, C), n, make,
-                      lambda m, t: m._launch_forward(t[0], t[1], t[2], 1e-5, True)))
-        cases.append(("train bwd", (size, C), n, make,
-                      lambda m, t: m.fused_mat_norm_bwd(t[3], t[0], t[1], t[4], t[5])))
+        make = lambda size=size, C=C: fwd_inputs(BATCH, size, C, bf16, True)
+        cases.append(("bridge fwd bfloat16", f"H=W={size} C={C}", n, make, plain_fwd))
+        if folds:
+            cases.append(("bridge fwd bfloat16, bias folded here", f"H=W={size} C={C}", n, make,
+                          fold_fwd))
+    for (size, C), n in sorted(serving.items()):
+        make = lambda size=size, C=C: fwd_inputs(1, size, C, f32, False)
+        cases.append(("module fwd float32 b1", f"H=W={size} C={C}", n, make, plain_fwd))
+    spade_shapes = spade_counts.norm_shapes(harness.load_cell(SPADE_CELL).config["opt"])
+    for dtype in (bf16, f32):
+        name = str(dtype).split(".")[-1]
+        for (h, w, c), n in sorted(spade_shapes.items()):
+            make = lambda h=h, w=w, c=c, dtype=dtype: spade_inputs(h, w, c, dtype)
+            cases.append((f"spade {name}", f"{h}x{w} C={c}", n, make, plain_spade))
+            if folds:
+                cases.append((f"spade {name}, bias folded here", f"{h}x{w} C={c}", n, make,
+                              fold_spade))
 
     totals: dict = {}
-    for path, (size, C), n, make, call in cases:
-        t = make()
-        got = {side: [] for side in sides}
-        for side in ("other", "this", "this", "other"):
-            fn = lambda m=sides[side]: call(m, t)
-            got[side].append((device_ms(fn), time_ms(fn), host_us(fn)))
-        mean = {side: [sum(v) / len(v) for v in zip(*runs)] for side, runs in got.items()}
-        for side, (ms, wall, us) in mean.items():
-            acc = totals.setdefault((path, side), [0.0, 0.0])
-            acc[0] += n * ms
-            acc[1] += n * wall
-        (o_ms, o_wall, o_us), (t_ms, t_wall, t_us) = mean["other"], mean["this"]
-        print(f"ab {path} H=W={size} C={C} x{n}/step: kernel other {o_ms:.4f} this {t_ms:.4f} "
-              f"ms ({t_ms / o_ms:.3f}x); wall per call other {o_wall:.4f} this {t_wall:.4f} ms "
-              f"({t_wall / o_wall:.3f}x); host other {o_us:.1f} this {t_us:.1f} us/call")
-    for path in ("serving fwd", "train fwd", "train bwd"):
+    with torch.no_grad():
+        for path, label, n, make, call in cases:
+            t = make()
+            got = {side: [] for side in sides}
+            for side in ("other", "this", "this", "other"):
+                fn = lambda m=sides[side]: call(m, t)
+                got[side].append((device_ms(fn), time_ms(fn), host_us(fn)))
+            mean = {side: [sum(v) / len(v) for v in zip(*runs)] for side, runs in got.items()}
+            for side, (ms, wall, us) in mean.items():
+                acc = totals.setdefault((path, side), [0.0, 0.0])
+                acc[0] += n * ms
+                acc[1] += n * wall
+            (o_ms, o_wall, o_us), (t_ms, t_wall, t_us) = mean["other"], mean["this"]
+            print(f"ab {path} {label} x{n}/step: kernel other {o_ms:.4f} this {t_ms:.4f} "
+                  f"ms ({t_ms / o_ms:.3f}x); wall per call other {o_wall:.4f} this "
+                  f"{t_wall:.4f} ms ({t_wall / o_wall:.3f}x); host other {o_us:.1f} this "
+                  f"{t_us:.1f} us/call")
+            del t
+    for path in dict.fromkeys(p for p, *_ in cases):
         (o_ms, o_wall), (t_ms, t_wall) = totals[(path, "other")], totals[(path, "this")]
-        print(f"ab {path} per step (13 norms): kernel other {o_ms:.4f} this {t_ms:.4f} ms; "
-              f"wall other {o_wall:.4f} this {t_wall:.4f} ms; on {card}")
+        print(f"ab {path} per step or pass: kernel other {o_ms:.4f} this {t_ms:.4f} ms "
+              f"({t_ms / o_ms:.4f}x); wall other {o_wall:.4f} this {t_wall:.4f} ms; on {card}")
 
     # the main paths end to end: each side's package in a process of its own
     # (two packages of one name cannot share a process), in turns
@@ -1168,7 +1259,7 @@ def launch_plan(ck, plan, x, g, b, dy=None, mean=None, rstd=None) -> None:
     out, g_strides = torch.empty_like(x), ck._batch_pixel_strides(g, "gamma")
     if dy is None:
         err = lib.s2p_fused_mat_norm(
-            x.data_ptr(), g.data_ptr(), b.data_ptr(), out.data_ptr(),
+            x.data_ptr(), g.data_ptr(), b.data_ptr(), None, out.data_ptr(),
             None if mean is None else mean.data_ptr(), None if rstd is None else rstd.data_ptr(),
             B, H * W, C, *g_strides, *ck._batch_pixel_strides(b, "beta"), dtype, 1e-5,
             *ck._plan_args(plan), stream)
@@ -3872,7 +3963,7 @@ def phase_spade_norm(ck, card: str) -> dict:
              for strided in (True, False)] + [((16, 16, 30), 0, True)]  # scalar: 30 % 4 != 0
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
-        pass_ms = pass_bound = pass_plain = 0.0
+        pass_ms = pass_bias = pass_bound = pass_plain = 0.0
         for (h, w, c), n, strided in cases:
             B = SPADE_BATCH if n else 2
             x = (torch.randn(B, h, w, c, generator=g, device="cuda") * 3 + 1).to(dtype)
@@ -3881,16 +3972,22 @@ def phase_spade_norm(ck, card: str) -> dict:
                 gb[..., :c].contiguous(), gb[..., c:].contiguous())
             a = torch.rand(c, generator=g, device="cuda") + 0.5
             b = torch.randn(c, generator=g, device="cuda")
-            with torch.no_grad():
-                out = ck.spade_norm(x, gamma, beta, a, b)
-                ref = ck.spade_norm_plain(x, gamma, beta, a, b)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs()
-            tol = SPADE_F32_TOL if dtype == torch.float32 else BF16_TOL
-            max_err[dtype] = max(max_err[dtype], err.max().item())
-            if not torch.isfinite(out).all() or (err > tol + tol * ref.float().abs()).any():
-                fail(f"spade_norm vs plain at {name} {(B, h, w, c)} strided={strided}: "
-                     f"max |err| {err.max().item():.3g}")
+            bias = gb_bias_like(x, seed=c)
+            for gb_bias in (None, bias):  # without and with the folded γ‖β bias
+                counted = ck.spade_norm.bias_launches
+                with torch.no_grad():
+                    out = ck.spade_norm(x, gamma, beta, a, b, gb_bias=gb_bias)
+                    ref = ck.spade_norm_plain(x, gamma, beta, a, b, gb_bias=gb_bias)
+                torch.cuda.synchronize()
+                if ck.spade_norm.bias_launches - counted != (gb_bias is not None):
+                    fail(f"spade_norm.bias_launches miscounted a launch at {(B, h, w, c)}")
+                err = (out.float() - ref.float()).abs()
+                tol = SPADE_F32_TOL if dtype == torch.float32 else BF16_TOL
+                max_err[dtype] = max(max_err[dtype], err.max().item())
+                if not torch.isfinite(out).all() or (err > tol + tol * ref.float().abs()).any():
+                    fail(f"spade_norm vs plain at {name} {(B, h, w, c)} strided={strided}, "
+                         f"gb_bias {'folded' if gb_bias is not None else 'none'}: max |err| "
+                         f"{err.max().item():.3g}")
             bits = x.data_ptr() | gamma.data_ptr() | beta.data_ptr() | (2 * c * x.element_size())
             plan = ck.spade_norm_plan(B * h * w, c, dtype, bits % 16 == 0,
                                       ck._sm_count(x.device.index))
@@ -3904,23 +4001,27 @@ def phase_spade_norm(ck, card: str) -> dict:
                 fail(f"spade_norm: {name} {(B, h, w, c)} fell to the scalar path")
             with torch.no_grad():
                 ms = device_ms(lambda: ck.spade_norm(x, gamma, beta, a, b))
+                bias_ms = device_ms(lambda: ck.spade_norm(x, gamma, beta, a, b, gb_bias=bias))
                 plain = device_ms(lambda: ck.spade_norm_plain(x, gamma, beta, a, b), iters=5)
             elems = B * h * w * c
             bound = max(4 * elems * x.element_size() / HBM_BYTES_PER_S,
                         5 * elems / 67e12) * 1e3
             print(f"spade_norm {name} {(B, h, w, c)} strided={strided} x{n}/pass: "
-                  f"{ms:.4f} ms (bound {bound:.4f}, {100 * bound / ms:.1f}%), plain "
+                  f"{ms:.4f} ms (bound {bound:.4f}, {100 * bound / ms:.1f}%; gb_bias folded "
+                  f"{bias_ms:.4f} ms, {100 * (bias_ms / ms - 1):+.2f}%), plain "
                   f"{plain:.4f} ms; plan lanes {plan.lanes} threads {plan.threads} "
                   f"grid {plan.grid}x{plan.c_tiles}; max |err| {err.max().item():.3g}")
             if strided:  # the fast path's layout
                 pass_ms += n * ms
+                pass_bias += n * bias_ms
                 pass_bound += n * bound
                 pass_plain += n * plain
-        per_pass[name] = dict(ms=pass_ms, bound_ms=pass_bound, plain_ms=pass_plain,
-                              roofline_pct=100 * pass_bound / pass_ms)
+        per_pass[name] = dict(ms=pass_ms, bias_ms=pass_bias, bound_ms=pass_bound,
+                              plain_ms=pass_plain, roofline_pct=100 * pass_bound / pass_ms)
         print(f"spade_norm {name}, one pass at batch {SPADE_BATCH} (18 launches): "
               f"{pass_ms:.4f} ms against a bound of {pass_bound:.4f} ms "
-              f"({100 * pass_bound / pass_ms:.1f}%), plain {pass_plain:.4f} ms")
+              f"({100 * pass_bound / pass_ms:.1f}%; gb_bias folded {pass_bias:.4f} ms, "
+              f"{100 * (pass_bias / pass_ms - 1):+.2f}%), plain {pass_plain:.4f} ms")
     print(f"spade_norm vs plain: max |err| f32 {max_err[torch.float32]:.3g}, bf16 "
           f"{max_err[torch.bfloat16]:.3g} (tolerance f32 rtol=atol {SPADE_F32_TOL}, bf16 "
           f"rtol=atol {BF16_TOL}); {ck.spade_norm.launches - before} launches; {card}")
@@ -3950,18 +4051,23 @@ def phase_spade_path(ck, card: str) -> dict:
     with torch.no_grad():
         synthesize_fast(gen, ids, params)  # builds the kernel and warms every shape
         torch.cuda.synchronize()
-        ck.spade_norm.launches = 0
+        ck.spade_norm.launches = ck.spade_norm.bias_launches = 0
         frames = synthesize_fast(gen, ids, params)
         torch.cuda.synchronize()
-        launches = ck.spade_norm.launches
-        if launches != 18:
-            fail(f"synthesize_fast: {launches} spade_norm launches a pass, not 18")
+        launches, bias_launches = ck.spade_norm.launches, ck.spade_norm.bias_launches
+        if launches != 18 or bias_launches != 18:
+            fail(f"synthesize_fast: {launches} spade_norm launches a pass, {bias_launches} "
+                 "with the γ‖β bias folded; not 18 and 18")
         ms = time_ms(lambda: synthesize_fast(gen, ids, params), iters=10)
         tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
         gen32 = drv.build_generator(opt, weights, ctx.device, torch.float32)
+        ck.spade_norm.launches = ck.spade_norm.bias_launches = 0
         module = torch.cat([gen32(label_onehot(ids[lo:lo + SPADE_CHUNK], gen32.semantic_nc))
                             for lo in range(0, len(ids), SPADE_CHUNK)])
+        if ck.spade_norm.launches == 0 or ck.spade_norm.bias_launches:
+            fail(f"the module path launched spade_norm {ck.spade_norm.launches} times, "
+                 f"{ck.spade_norm.bias_launches} with a folded bias; the module path folds none")
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     del gen32, params
     err = frames.float() - module
@@ -3969,14 +4075,15 @@ def phase_spade_path(ck, card: str) -> dict:
                 frame_rms_gap=err.square().mean().sqrt().item())
     saturated = (frames.float().abs() > drv.SATURATED).float().mean().item()
     print(f"GauGAN synthesize_fast, batch {len(ids)} at {gen.image_hw} bf16: {launches} "
-          f"spade_norm launches a pass; {ms:.3f} ms a pass ({1e3 * len(ids) / ms:.1f} "
+          f"spade_norm launches a pass ({bias_launches} with the γ‖β bias folded); {ms:.3f} ms a pass ({1e3 * len(ids) / ms:.1f} "
           f"frames/s, events, host included); against the module path in f32: " +
           ", ".join(f"{k} {v:.4g} (limit {cell.limits[k]})" for k, v in gaps.items()) +
           f"; saturated share {saturated:.4f}; {card}")
     if not all(torch.isfinite(frames.float()).all().item() and v <= cell.limits[k]
                for k, v in gaps.items()):
         fail(f"synthesize_fast vs the module path: {gaps} beyond {cell.limits}")
-    return dict(launches=launches, ms=ms, gaps=gaps, saturated_share=saturated)
+    return dict(launches=launches, bias_launches=bias_launches, ms=ms, gaps=gaps,
+                saturated_share=saturated)
 
 
 def main() -> None:
@@ -4171,15 +4278,17 @@ def main() -> None:
         replaces="s2p_tpu/gan/pallas_kernels.py:49", launches=sum(by_path.values()),
         launches_by_path=by_path,
         max_abs_err=stats["max_abs_err"], max_abs_err_bf16=stats["max_abs_err_bf16"],
-        ms=stats["ms"], plain_ms=stats["plain_ms"], bound_ms=stats["bound_ms"],
-        bound_by="bytes", library_ms=None,
+        ms=stats["ms"], bias_ms=stats["bias_ms"], plain_ms=stats["plain_ms"],
+        bound_ms=stats["bound_ms"], bound_by="bytes", library_ms=None,
         wall_ms=stats["wall_ms"], instance_norm_ms=stats["instance_norm_ms"],
         train_step_ms=bwd["fwd_ms"], train_step_wall_ms=bwd["fwd_wall_ms"],
         train_step_plain_ms=bwd["fwd_plain_ms"], train_step_bound_ms=bwd["fwd_bound_ms"],
-        bridge_batch_ms=stats["bridge"]["ms"], bridge_batch_plain_ms=stats["bridge"]["plain_ms"],
+        bridge_batch_ms=stats["bridge"]["ms"], bridge_batch_bias_ms=stats["bridge"]["bias_ms"],
+        bridge_batch_plain_ms=stats["bridge"]["plain_ms"],
         bridge_batch_bound_ms=stats["bridge"]["bound_ms"],
         per="ms/plain_ms/bound_ms: one 64px/ngf=64 generator step at batch 256 in bf16 "
-            "(13 norms); train_step_*: the 13 norms of a 100px/ngf=64 train step at batch "
+            "(13 norms); bias_ms: the same with the gamma||beta bias folded (gb_bias), as "
+            "the fast path runs it; train_step_*: the 13 norms of a 100px/ngf=64 train step at batch "
             "16 in bf16; bridge_batch_*: the 13 norms of one 100px/ngf=64 bridge batch of "
             "256 in bf16 (gamma and beta contiguous); ms, plain_ms: device time (CUDA graph "
             "replay), where the records of PR 1 and PR 2 gave wall time per call as ms, so "
@@ -4209,12 +4318,15 @@ def main() -> None:
         launches_by_path=dict(spade_synth=spade_path["launches"]),
         max_abs_err=spade_kernel["max_err"]["float32"],
         max_abs_err_bf16=spade_kernel["max_err"]["bfloat16"],
-        ms=spade_pass["ms"], plain_ms=spade_pass["plain_ms"], bound_ms=spade_pass["bound_ms"],
-        bound_by="bytes", library_ms=None, path_ms=spade_path["ms"],
+        ms=spade_pass["ms"], bias_ms=spade_pass["bias_ms"], plain_ms=spade_pass["plain_ms"],
+        bound_ms=spade_pass["bound_ms"], bound_by="bytes", library_ms=None,
+        path_ms=spade_path["ms"],
         path_gaps=spade_path["gaps"],
         per="ms/plain_ms/bound_ms: the 18 SPADE norms of one GauGAN pass (ADE20K 256², "
             "ngf 64) at batch 32 in bf16, gamma and beta the halves of one gamma||beta "
-            "tensor; device time (CUDA graph replay); bound: 4 arrays at the HBM rate; no "
+            "tensor; bias_ms: the same with the gamma||beta bias folded (gb_bias), as the "
+            "fast path runs it; device time (CUDA graph replay); bound: 4 arrays at the HBM "
+            "rate; no "
             "library kernel computes the modulation with given statistics (library_ms "
             "None); the JAX package has no such kernel (replaces None); path_ms: one "
             "synthesize_fast pass at batch 32 (events, host included); path_gaps: its "

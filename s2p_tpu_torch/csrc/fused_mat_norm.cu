@@ -13,6 +13,16 @@
 // channel halves of one gamma||beta conv output (pixel stride 2C), read in
 // place with no copy.
 //
+// Bias. The forward may also take the fast path's gamma||beta conv bias
+// (gb_bias, [2C]: gamma's C values, then beta's), which it adds in f32 as
+// (1 + b_gamma) + gamma and beta + b_beta, so that the conv runs without its
+// bias and no separate pass adds it to the 2C-channel map. Each thread loads
+// its V channels' biases once (two 16-byte loads on the vector path), before
+// pass 2, whose loop hides the loads' latency. Pass 3 has a loop with the
+// bias and one without, chosen by the pointer outside the loop: with a null
+// pointer (every caller but the fast path) it does no bias arithmetic, so its
+// output is bit for bit the formula's without the bias.
+//
 // Bound. Both kernels do ~10 flops per byte, far below the card's ~295
 // flops per byte, so they are bound by bytes. The forward must read x,
 // gamma and beta once and write out once: 4 elements per entry of B*H*W*C.
@@ -213,6 +223,7 @@ struct FwdArgs {
   const T* x;
   const T* gamma;
   const T* beta;
+  const T* gb_bias;  // the gamma||beta conv's bias [2C] (gamma's C, then beta's), or null
   T* out;
   float* mean;  // f32 [B, C] statistics for the backward, or null
   float* rstd;
@@ -221,8 +232,19 @@ struct FwdArgs {
   float eps;
 };
 
+// CTAs an SM each forward instance is compiled for. A kernel gets the
+// registers of its hungriest loop, here the bias loop of pass 3, so the bound
+// keeps the vector paths at the occupancy they had without it: bf16 at 80
+// registers and three CTAs (the serving shapes' small slices let three share
+// an SM), where the bias loop would take 95 and two; f32 at 64 and four,
+// where it would take 72 and three. The scalar paths keep the two that a
+// 100 KB slice allows.
+template <typename T, int V>
+constexpr int kFwdMinCtas = V == 1 ? 2 : std::is_same<T, __nv_bfloat16>::value ? 3 : 4;
+
 template <typename T, int V, bool kResident>
-__global__ void __launch_bounds__(kThreads, 2) fused_mat_norm_kernel(const FwdArgs<T> a) {
+__global__ void __launch_bounds__(kThreads, kFwdMinCtas<T, V>)
+    fused_mat_norm_kernel(const FwdArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const Place q = place(a.hw, a.tile_c, a.c_tiles, a.ppc, V, cluster);
@@ -267,6 +289,10 @@ __global__ void __launch_bounds__(kThreads, 2) fused_mat_norm_kernel(const FwdAr
     mu[v] = shift[v] + tot[q.cgi * V + v] / (float)a.hw;
     acc[0][v] = 0.f;
   }
+  // the folded bias (b_gamma, b_beta), loaded here, so that pass 2 hides the
+  // loads' latency
+  float g1[V], bb[V];
+  if (a.gb_bias != nullptr && active) load_bias<T, V>(a.gb_bias, a.C, q.c, g1, bb);
 
   // pass 2: population variance from the centred sum of squares
   if (active) {
@@ -295,20 +321,35 @@ __global__ void __launch_bounds__(kThreads, 2) fused_mat_norm_kernel(const FwdAr
         }
       }
     }
-    // pass 3: normalise, modulate, store
+    // pass 3: normalise, modulate (with the bias folded in), store; one loop
+    // each way, so that a launch without a bias does no bias arithmetic
     const T* g = a.gamma + q.b * a.g_bstride + q.p0 * a.g_pstride + q.c;
     const T* be = a.beta + q.b * a.b_bstride + q.p0 * a.b_pstride + q.c;
     T* o = a.out + (img + q.p0) * a.C + q.c;
-#pragma unroll 4
-    for (int p = q.row; p < q.n; p += q.rows) {
-      float xv[V], gv[V], bv[V], r[V];
-      load_x(p, xv);
-      load_vec<T, V>(g + p * a.g_pstride, gv);
-      load_vec<T, V>(be + p * a.b_pstride, bv);
+    auto modulate = [&](auto bias) {
+      constexpr bool kBias = decltype(bias)::value;
+      if constexpr (kBias) {
 #pragma unroll
-      for (int v = 0; v < V; ++v) r[v] = (xv[v] - mu[v]) * rs[v] * (1.f + gv[v]) + bv[v];
-      store_vec<T, V>(o + (long long)p * a.C, r);
-    }
+        for (int v = 0; v < V; ++v) g1[v] = 1.f + g1[v];
+      }
+#pragma unroll 4
+      for (int p = q.row; p < q.n; p += q.rows) {
+        float xv[V], gv[V], bv[V], r[V];
+        load_x(p, xv);
+        load_vec<T, V>(g + p * a.g_pstride, gv);
+        load_vec<T, V>(be + p * a.b_pstride, bv);
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          if constexpr (kBias)
+            r[v] = (xv[v] - mu[v]) * rs[v] * (g1[v] + gv[v]) + (bv[v] + bb[v]);
+          else
+            r[v] = (xv[v] - mu[v]) * rs[v] * (1.f + gv[v]) + bv[v];
+        }
+        store_vec<T, V>(o + (long long)p * a.C, r);
+      }
+    };
+    if (a.gb_bias != nullptr) modulate(std::true_type{});
+    else modulate(std::false_type{});
   }
   if (cluster.num_blocks() > 1) cluster.sync();  // no CTA leaves while a partner may still read
 }
@@ -511,16 +552,16 @@ cudaError_t launch_bwd(const BwdArgs<T>& a, int batch, int cluster, int resident
 }
 
 template <typename T>
-cudaError_t forward(const void* x, const void* gamma, const void* beta, void* out, void* mean,
-                    void* rstd, int batch, int hw, int C, long long g_bstride,
-                    long long g_pstride, long long b_bstride, long long b_pstride, float eps,
-                    int tile_c, int cluster, int ppc, int resident, int vec, int smem,
-                    cudaStream_t stream) {
+cudaError_t forward(const void* x, const void* gamma, const void* beta, const void* gb_bias,
+                    void* out, void* mean, void* rstd, int batch, int hw, int C,
+                    long long g_bstride, long long g_pstride, long long b_bstride,
+                    long long b_pstride, float eps, int tile_c, int cluster, int ppc,
+                    int resident, int vec, int smem, cudaStream_t stream) {
   if (!plan_ok(batch, hw, C, sizeof(T), 1, tile_c, cluster, ppc, resident, vec, smem))
     return cudaErrorInvalidValue;
   const FwdArgs<T> a{static_cast<const T*>(x), static_cast<const T*>(gamma),
-                     static_cast<const T*>(beta), static_cast<T*>(out),
-                     static_cast<float*>(mean), static_cast<float*>(rstd),
+                     static_cast<const T*>(beta), static_cast<const T*>(gb_bias),
+                     static_cast<T*>(out), static_cast<float*>(mean), static_cast<float*>(rstd),
                      hw, C, tile_c, (C + tile_c - 1) / tile_c, ppc,
                      g_bstride, g_pstride, b_bstride, b_pstride, eps};
   return launch_fwd<T>(a, batch, cluster, resident, vec, smem, stream);
@@ -543,25 +584,25 @@ cudaError_t backward(const void* dy, const void* x, const void* gamma, const voi
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. mean and rstd (f32 [B, C]) may both be
-// null. tile_c ... smem are the launch plan (cuda_kernels.py::mat_norm_plan).
-// Returns the launch's cudaError_t; cudaErrorInvalidValue for a plan this
-// file cannot run.
+// dtype: 0 = float32, 1 = bfloat16. gb_bias (contiguous [2C] of x's dtype)
+// may be null, and mean and rstd (f32 [B, C]) may both be null. tile_c ...
+// smem are the launch plan (cuda_kernels.py::mat_norm_plan). Returns the
+// launch's cudaError_t; cudaErrorInvalidValue for a plan this file cannot run.
 extern "C" int s2p_fused_mat_norm(const void* x, const void* gamma, const void* beta,
-                                  void* out, void* mean, void* rstd, int batch, int hw,
-                                  int C, long long g_bstride, long long g_pstride,
-                                  long long b_bstride, long long b_pstride, int dtype,
-                                  float eps, int tile_c, int cluster, int ppc, int resident,
-                                  int vec, int smem, void* stream) {
+                                  const void* gb_bias, void* out, void* mean, void* rstd,
+                                  int batch, int hw, int C, long long g_bstride,
+                                  long long g_pstride, long long b_bstride, long long b_pstride,
+                                  int dtype, float eps, int tile_c, int cluster, int ppc,
+                                  int resident, int vec, int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return forward<float>(x, gamma, beta, out, mean, rstd, batch, hw, C, g_bstride, g_pstride,
-                          b_bstride, b_pstride, eps, tile_c, cluster, ppc, resident, vec,
-                          smem, s);
+    return forward<float>(x, gamma, beta, gb_bias, out, mean, rstd, batch, hw, C, g_bstride,
+                          g_pstride, b_bstride, b_pstride, eps, tile_c, cluster, ppc, resident,
+                          vec, smem, s);
   if (dtype == 1)
-    return forward<__nv_bfloat16>(x, gamma, beta, out, mean, rstd, batch, hw, C, g_bstride,
-                                  g_pstride, b_bstride, b_pstride, eps, tile_c, cluster, ppc,
-                                  resident, vec, smem, s);
+    return forward<__nv_bfloat16>(x, gamma, beta, gb_bias, out, mean, rstd, batch, hw, C,
+                                  g_bstride, g_pstride, b_bstride, b_pstride, eps, tile_c,
+                                  cluster, ppc, resident, vec, smem, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

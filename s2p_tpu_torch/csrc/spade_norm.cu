@@ -22,6 +22,15 @@
 // At 3.35 TB/s the 18 norms of one 256px GauGAN pass (ngf 64) at batch 32 in
 // bf16 move 10.4 GB: >= 3.1 ms.
 //
+// Bias. The kernel may also take the fast path's gamma||beta conv bias
+// (gb_bias, [2C]: gamma's C values, then beta's), added in f32 as
+// (1 + b_gamma) + gamma and beta + b_beta, so that the conv runs without its
+// bias and no separate pass adds it to the 2C-channel map. A thread loads its
+// channels' biases once (two 16-byte loads on the vector path), beside a and
+// b. The pixel loop comes with the bias and without, chosen by the pointer
+// outside it: with a null pointer (the module path) it does no bias
+// arithmetic, so its output is bit for bit the formula's without the bias.
+//
 // Design. One pass with no reduction, so nothing to keep on chip but a and b:
 // one launch covers every element. A thread owns one 16-byte vector of
 // channels (8 bf16 or 4 f32; one channel on the scalar path) and loads its a
@@ -52,6 +61,7 @@ struct SpadeArgs {
   const T* beta;
   const float* scale;  // a, f32 [C]
   const float* shift;  // b, f32 [C]
+  const T* gb_bias;  // the gamma||beta conv's bias [2C] (gamma's C, then beta's), or null
   T* out;
   long long pixels;  // B * H * W
   int hw, C, lanes;  // lanes: threads that cover one pixel's channel tile
@@ -70,30 +80,45 @@ __global__ void __launch_bounds__(kMaxThreads) spade_norm_kernel(const SpadeArgs
     sh[v] = a.shift[c + v];
   }
   const long long step = (long long)gridDim.x * rows;
-  for (long long p0 = (long long)blockIdx.x * rows + threadIdx.x / a.lanes; p0 < a.pixels;
-       p0 += kUnroll * step) {
-    float xv[kUnroll][V], gv[kUnroll][V], bv[kUnroll][V];
+  auto modulate = [&](auto bias) {
+    constexpr bool kBias = decltype(bias)::value;
+    float g1[V], bb[V];
+    if constexpr (kBias) {
+      load_bias<T, V>(a.gb_bias, a.C, c, g1, bb);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long p = p0 + u * step;
-      if (p < a.pixels) {
-        const long long img = p / a.hw, q = p - img * a.hw;
-        load_vec<T, V>(a.x + p * a.C + c, xv[u]);
-        load_vec<T, V>(a.gamma + img * a.g_bstride + q * a.g_pstride + c, gv[u]);
-        load_vec<T, V>(a.beta + img * a.b_bstride + q * a.b_pstride + c, bv[u]);
+      for (int v = 0; v < V; ++v) g1[v] = 1.f + g1[v];
+    }
+    for (long long p0 = (long long)blockIdx.x * rows + threadIdx.x / a.lanes; p0 < a.pixels;
+         p0 += kUnroll * step) {
+      float xv[kUnroll][V], gv[kUnroll][V], bv[kUnroll][V];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long p = p0 + u * step;
+        if (p < a.pixels) {
+          const long long img = p / a.hw, q = p - img * a.hw;
+          load_vec<T, V>(a.x + p * a.C + c, xv[u]);
+          load_vec<T, V>(a.gamma + img * a.g_bstride + q * a.g_pstride + c, gv[u]);
+          load_vec<T, V>(a.beta + img * a.b_bstride + q * a.b_pstride + c, bv[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long p = p0 + u * step;
+        if (p < a.pixels) {
+          float r[V];
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            if constexpr (kBias)
+              r[v] = (xv[u][v] * sc[v] + sh[v]) * (g1[v] + gv[u][v]) + (bv[u][v] + bb[v]);
+            else r[v] = (xv[u][v] * sc[v] + sh[v]) * (1.f + gv[u][v]) + bv[u][v];
+          }
+          store_vec<T, V>(a.out + p * a.C + c, r);
+        }
       }
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long p = p0 + u * step;
-      if (p < a.pixels) {
-        float r[V];
-#pragma unroll
-        for (int v = 0; v < V; ++v) r[v] = (xv[u][v] * sc[v] + sh[v]) * (1.f + gv[u][v]) + bv[u][v];
-        store_vec<T, V>(a.out + p * a.C + c, r);
-      }
-    }
-  }
+  };
+  if (a.gb_bias != nullptr) modulate(std::true_type{});
+  else modulate(std::false_type{});
 }
 
 // The plan's consistency with this kernel: whole pixel rows of threads, a
@@ -115,8 +140,8 @@ cudaError_t launch(const SpadeArgs<T>& a, int threads, int grid, int c_tiles,
 
 template <typename T>
 cudaError_t forward(const void* x, const void* gamma, const void* beta, const void* scale,
-                    const void* shift, void* out, long long pixels, int hw, int C,
-                    long long g_bstride, long long g_pstride, long long b_bstride,
+                    const void* shift, const void* gb_bias, void* out, long long pixels, int hw,
+                    int C, long long g_bstride, long long g_pstride, long long b_bstride,
                     long long b_pstride, int vec, int lanes, int threads, int grid,
                     int c_tiles, cudaStream_t stream) {
   constexpr int W = 16 / sizeof(T);
@@ -124,7 +149,8 @@ cudaError_t forward(const void* x, const void* gamma, const void* beta, const vo
     return cudaErrorInvalidValue;
   const SpadeArgs<T> a{static_cast<const T*>(x),      static_cast<const T*>(gamma),
                        static_cast<const T*>(beta),   static_cast<const float*>(scale),
-                       static_cast<const float*>(shift), static_cast<T*>(out),
+                       static_cast<const float*>(shift), static_cast<const T*>(gb_bias),
+                       static_cast<T*>(out),
                        pixels, hw, C, lanes, g_bstride, g_pstride, b_bstride, b_pstride};
   return vec ? launch<T, W>(a, threads, grid, c_tiles, stream)
              : launch<T, 1>(a, threads, grid, c_tiles, stream);
@@ -132,23 +158,24 @@ cudaError_t forward(const void* x, const void* gamma, const void* beta, const vo
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; scale and shift are f32 [C]. vec ...
-// c_tiles are the launch plan (cuda_kernels.py::spade_norm_plan). Returns the
-// launch's cudaError_t; cudaErrorInvalidValue for a plan this file cannot run.
+// dtype: 0 = float32, 1 = bfloat16; scale and shift are f32 [C]; gb_bias
+// (contiguous [2C] of x's dtype) may be null. vec ... c_tiles are the launch
+// plan (cuda_kernels.py::spade_norm_plan). Returns the launch's cudaError_t;
+// cudaErrorInvalidValue for a plan this file cannot run.
 extern "C" int s2p_spade_norm(const void* x, const void* gamma, const void* beta,
-                              const void* scale, const void* shift, void* out,
-                              long long pixels, int hw, int C, long long g_bstride,
+                              const void* scale, const void* shift, const void* gb_bias,
+                              void* out, long long pixels, int hw, int C, long long g_bstride,
                               long long g_pstride, long long b_bstride, long long b_pstride,
                               int dtype, int vec, int lanes, int threads, int grid, int c_tiles,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return forward<float>(x, gamma, beta, scale, shift, out, pixels, hw, C, g_bstride,
+    return forward<float>(x, gamma, beta, scale, shift, gb_bias, out, pixels, hw, C, g_bstride,
                           g_pstride, b_bstride, b_pstride, vec, lanes, threads, grid, c_tiles,
                           s);
   if (dtype == 1)
-    return forward<__nv_bfloat16>(x, gamma, beta, scale, shift, out, pixels, hw, C, g_bstride,
-                                  g_pstride, b_bstride, b_pstride, vec, lanes, threads, grid,
-                                  c_tiles, s);
+    return forward<__nv_bfloat16>(x, gamma, beta, scale, shift, gb_bias, out, pixels, hw, C,
+                                  g_bstride, g_pstride, b_bstride, b_pstride, vec, lanes,
+                                  threads, grid, c_tiles, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -47,3 +47,25 @@ __device__ __forceinline__ void store_vec(T* p, const float (&f)[V]) {
     *reinterpret_cast<uint4*>(p) = r;
   }
 }
+
+// The fast path's gamma||beta conv bias for channels c .. c + V - 1 of C:
+// g[v] = b_gamma and b[v] = b_beta from bias [2C] (gamma's C values, then
+// beta's). Two 16-byte loads where the bias is 16-byte aligned (c and C are
+// multiples of V on the vector path), else scalar loads.
+template <typename T, int V>
+__device__ __forceinline__ void load_bias(const T* bias, int C, int c, float (&g)[V],
+                                          float (&b)[V]) {
+  if (V > 1 && reinterpret_cast<unsigned long long>(bias) % 16 == 0) {
+    load_vec<T, V>(bias + c, g);
+    load_vec<T, V>(bias + C + c, b);
+    return;
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    float t[1];
+    load_vec<T, 1>(bias + c + v, t);
+    g[v] = t[0];
+    load_vec<T, 1>(bias + C + c + v, t);
+    b[v] = t[0];
+  }
+}

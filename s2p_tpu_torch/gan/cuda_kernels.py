@@ -46,6 +46,16 @@ bound by bytes like the MAT norm's forward (4 elements per entry), with no
 gradient; ``spade_norm_plan`` sets its channel tile, threads and grid, and
 ``spade_norm_plain`` is its plain version.
 
+The MAT norm's forward and ``spade_norm`` also take an optional
+``gb_bias`` ``[2C]``, the fast path's γ‖β conv bias (γ's C values, then
+β's), which they add to γ and β in f32 as they read them: the fast path
+runs that conv without its bias, and PyTorch's separate bias pass over the
+2C-channel map goes. A thread loads its channels' biases once, so the bytes
+moved hardly change. Without it a kernel does no bias arithmetic, and its
+output is bit for bit the formula's without the bias; with it there is no
+gradient (it raises where autograd would record). ``bias_launches`` counts
+the launches that took one, beside ``launches``.
+
 Each kernel source is compiled by ``nvcc`` for ``sm_90a`` at its first use
 into ``build/s2p_tpu_torch/`` beside the package, named by the hash of its
 source, the headers beside it and the flags so that an edited source is
@@ -125,7 +135,7 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library."""
     lib = ctypes.CDLL(str(build()))
     fwd = lib.s2p_fused_mat_norm
-    fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                     + [ctypes.c_longlong] * 4
                     + [ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fwd.restype = ctypes.c_int
@@ -141,23 +151,34 @@ def _acc(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
-def _plain_forward(x, gamma, beta, eps):
+def _modulation(gamma, beta, gb_bias):
+    """(1 + γ, β) in the accumulation type, with the γ‖β conv's bias
+    ``gb_bias`` ``[2C]`` added as the kernels add it: (1 + b_γ) + γ, β + b_β."""
+    if gb_bias is None:
+        return 1.0 + _acc(gamma), _acc(beta)
+    b_gamma, b_beta = _acc(gb_bias).chunk(2)
+    return (1.0 + b_gamma) + _acc(gamma), _acc(beta) + b_beta
+
+
+def _plain_forward(x, gamma, beta, eps, gb_bias=None):
     """(out, mean, rstd), the statistics ``[B, C]`` in the accumulation type."""
     xf = _acc(x)
     mean = xf.mean(dim=(1, 2), keepdim=True)
     var = (xf - mean).square().mean(dim=(1, 2), keepdim=True)
     rstd = torch.rsqrt(var + eps)
-    out = (xf - mean) * rstd * (1.0 + _acc(gamma)) + _acc(beta)
+    one_gamma, beta = _modulation(gamma, beta, gb_bias)
+    out = (xf - mean) * rstd * one_gamma + beta
     return out.to(x.dtype), mean[:, 0, 0], rstd[:, 0, 0]
 
 
 def fused_mat_norm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                         eps: float = 1e-5) -> torch.Tensor:
+                         eps: float = 1e-5, gb_bias: torch.Tensor | None = None) -> torch.Tensor:
     """``instance_norm(x) * (1 + gamma) + beta`` over NHWC: the port of
     ``_plain`` (pallas_kernels.py:41-45), computed in float32 (float64 for
     float64 inputs) and cast back to x's type, as the kernel does; two-pass
-    variance, as ``jnp.var``."""
-    return _plain_forward(x, gamma, beta, eps)[0]
+    variance, as ``jnp.var``. ``gb_bias`` ``[2C]`` is added to γ and β in
+    that type first."""
+    return _plain_forward(x, gamma, beta, eps, gb_bias)[0]
 
 
 def fused_mat_norm_bwd_plain(dy: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
@@ -193,6 +214,21 @@ def _check(name: str, t: torch.Tensor, x: torch.Tensor) -> None:
     if t.device != x.device or t.dtype != x.dtype or t.shape != x.shape:
         raise ValueError(f"fused_mat_norm: {name} is {t.dtype} {tuple(t.shape)} on "
                          f"{t.device}, x is {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _check_gb_bias(kernel: str, gb_bias: torch.Tensor, x: torch.Tensor, *operands) -> None:
+    """Raise unless ``gb_bias`` is a bias the kernel can fold: contiguous
+    ``(2C,)`` of x's type on x's device, with no gradient to record (the
+    kernels have none for it)."""
+    C = x.shape[-1]
+    if (gb_bias.shape != (2 * C,) or gb_bias.dtype != x.dtype or gb_bias.device != x.device
+            or not gb_bias.is_contiguous()):
+        raise ValueError(f"{kernel}: gb_bias must be contiguous {x.dtype} ({2 * C},) on "
+                         f"{x.device}, got {gb_bias.dtype} {tuple(gb_bias.shape)} strides "
+                         f"{gb_bias.stride()} on {gb_bias.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (gb_bias, x, *operands)):
+        raise RuntimeError(f"{kernel}: a folded gb_bias has no backward: call it under "
+                           "torch.no_grad()")
 
 
 @dataclass(frozen=True)
@@ -316,9 +352,10 @@ def _on_stream(x: torch.Tensor, entry, *args) -> int:
     return entry(*args, torch._C._cuda_getCurrentRawStream(dev))
 
 
-def _launch_forward(x, gamma, beta, eps, save):
+def _launch_forward(x, gamma, beta, eps, save, gb_bias=None):
     """The forward kernel: (out, mean, rstd), the f32 ``[B, C]`` statistics
-    only when ``save`` (else None, and the kernel writes none)."""
+    only when ``save`` (else None, and the kernel writes none), with
+    ``gb_bias`` (checked by the caller) folded in when given."""
     for name, t in (("gamma", gamma), ("beta", beta)):
         _check(name, t, x)
     if x.dim() != 4 or x.dtype not in _DTYPES:
@@ -338,12 +375,14 @@ def _launch_forward(x, gamma, beta, eps, save):
         return out, mean, rstd
     plan = _plan("forward", x, (x, gamma, beta), (g_b, g_p, b_b, b_p))
     err = _on_stream(x, load_library().s2p_fused_mat_norm,
-                     x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+                     x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                     None if gb_bias is None else gb_bias.data_ptr(), out.data_ptr(),
                      mean.data_ptr() if save else None, rstd.data_ptr() if save else None,
                      B, H * W, C, g_b, g_p, b_b, b_p, _DTYPES[x.dtype], eps, *_plan_args(plan))
     if err != 0:
         raise RuntimeError(f"fused_mat_norm: kernel launch failed with cudaError {err}")
     fused_mat_norm.launches += 1
+    fused_mat_norm.bias_launches += gb_bias is not None
     return out, mean, rstd
 
 
@@ -423,24 +462,28 @@ class FusedMATNorm(torch.autograd.Function):
 
 
 def fused_mat_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                   eps: float = 1e-5) -> torch.Tensor:
+                   eps: float = 1e-5, gb_bias: torch.Tensor | None = None) -> torch.Tensor:
     """``instance_norm(x) * (1 + gamma) + beta`` for NHWC ``[B, H, W, C]``
     tensors in float32 or bfloat16, differentiable in x, gamma and beta. On
     the card: the CUDA kernels. x must be contiguous; gamma and beta need
     unit channel stride only (they may be channel slices of one wider
-    tensor)."""
+    tensor). ``gb_bias`` ``[2C]``, inference only, is added to γ and β
+    inside the forward kernel (the γ‖β conv's bias, see the module
+    docstring)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_mat_norm: unsupported device {x.device}")
+    if gb_bias is not None:
+        _check_gb_bias("fused_mat_norm", gb_bias, x, gamma, beta)
     if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
                                     or beta.requires_grad):
         return FusedMATNorm.apply(x, gamma, beta, eps, True)
     # nothing to differentiate (inference): the kernel alone, without autograd's overhead
     if x.device.type == "cpu":
-        return _plain_forward(x, gamma, beta, eps)[0]
-    return _launch_forward(x, gamma, beta, eps, False)[0]
+        return _plain_forward(x, gamma, beta, eps, gb_bias)[0]
+    return _launch_forward(x, gamma, beta, eps, False, gb_bias)[0]
 
 
-fused_mat_norm.launches = 0
+fused_mat_norm.launches = fused_mat_norm.bias_launches = 0
 fused_mat_norm_bwd.launches = 0
 
 
@@ -456,7 +499,7 @@ def load_spade_library() -> ctypes.CDLL:
     """Build (if needed) and load the SPADE-norm library."""
     lib = ctypes.CDLL(str(build(SPADE_SOURCE)))
     fn = lib.s2p_spade_norm
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 2
                    + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
@@ -500,15 +543,18 @@ def spade_norm_plan(pixels: int, C: int, dtype: torch.dtype, vec_ok: bool,
 
 
 def spade_norm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                     scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+                     scale: torch.Tensor, shift: torch.Tensor,
+                     gb_bias: torch.Tensor | None = None) -> torch.Tensor:
     """``(x·scale + shift)·(1 + gamma) + beta`` over NHWC, scale and shift
     ``[C]``: computed in float32 (float64 for float64 inputs) and cast back
-    to x's type, as the kernel does."""
-    out = (_acc(x) * _acc(scale) + _acc(shift)) * (1.0 + _acc(gamma)) + _acc(beta)
+    to x's type, as the kernel does. ``gb_bias`` ``[2C]`` is added to γ and
+    β in that type first."""
+    one_gamma, beta = _modulation(gamma, beta, gb_bias)
+    out = (_acc(x) * _acc(scale) + _acc(shift)) * one_gamma + beta
     return out.to(x.dtype)
 
 
-def _launch_spade(x, gamma, beta, scale, shift):
+def _launch_spade(x, gamma, beta, scale, shift, gb_bias=None):
     for name, t in (("gamma", gamma), ("beta", beta)):
         if t.device != x.device or t.dtype != x.dtype or t.shape != x.shape:
             raise ValueError(f"spade_norm: {name} is {t.dtype} {tuple(t.shape)} on "
@@ -533,30 +579,37 @@ def _launch_spade(x, gamma, beta, scale, shift):
     plan = spade_norm_plan(B * H * W, C, x.dtype, bits % 16 == 0, _sm_count(x.device.index))
     err = _on_stream(x, load_spade_library().s2p_spade_norm,
                      x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), scale.data_ptr(),
-                     shift.data_ptr(), out.data_ptr(), B * H * W, H * W, C, g_b, g_p, b_b, b_p,
+                     shift.data_ptr(), None if gb_bias is None else gb_bias.data_ptr(),
+                     out.data_ptr(), B * H * W, H * W, C, g_b, g_p, b_b, b_p,
                      _DTYPES[x.dtype], int(plan.vec), plan.lanes, plan.threads, plan.grid,
                      plan.c_tiles)
     if err != 0:
         raise RuntimeError(f"spade_norm: kernel launch failed with cudaError {err}")
     spade_norm.launches += 1
+    spade_norm.bias_launches += gb_bias is not None
     return out
 
 
 def spade_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-               scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+               scale: torch.Tensor, shift: torch.Tensor,
+               gb_bias: torch.Tensor | None = None) -> torch.Tensor:
     """``(x·scale + shift)·(1 + gamma) + beta`` for NHWC ``[B, H, W, C]``
     tensors in float32 or bfloat16 with f32 ``scale``/``shift`` ``[C]``. On
     the card: the CUDA kernel, for inference only (it raises where autograd
     would record: SPADE's generator is not trained in the port). x must be
     contiguous; gamma and beta need unit channel stride only (they may be
-    channel slices of one wider tensor). On the CPU: the plain version."""
+    channel slices of one wider tensor). ``gb_bias`` ``[2C]`` is added to γ
+    and β inside the kernel (the γ‖β conv's bias, see the module
+    docstring). On the CPU: the plain version."""
+    if gb_bias is not None:
+        _check_gb_bias("spade_norm", gb_bias, x, gamma, beta, scale, shift)
     if x.device.type == "cpu":
-        return spade_norm_plain(x, gamma, beta, scale, shift)
+        return spade_norm_plain(x, gamma, beta, scale, shift, gb_bias)
     if x.device.type != "cuda":
         raise ValueError(f"spade_norm: unsupported device {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, gamma, beta, scale, shift)):
         raise RuntimeError("spade_norm has no backward: call it under torch.no_grad()")
-    return _launch_spade(x, gamma, beta, scale, shift)
+    return _launch_spade(x, gamma, beta, scale, shift, gb_bias)
 
 
-spade_norm.launches = 0
+spade_norm.launches = spade_norm.bias_launches = 0

@@ -244,19 +244,23 @@ def _modulate(x: torch.Tensor, h: torch.Tensor, p: Params, gb_int8: bool = False
     """γ‖β conv over the norm's hidden map ``h`` (on int8 operands with
     ``gb_int8``), then the modulated norm (instance statistics, or the
     folded running statistics ``scale``/``shift`` of a SPADE batch norm),
-    with γ and β read in place as the conv output's two channel halves."""
+    with γ and β read in place as the conv output's two channel halves.
+    The float conv runs without its bias: the norm kernel adds it to γ and
+    β as it reads them, which saves a pass over the 2C-channel map (the
+    int8 conv adds it in its own f32 epilogue)."""
     if gb_int8 and "mlp_gb_q" not in p:
         raise ValueError("gb_int8=True needs the int8 operands: fuse the parameters with "
                          "fuse_fast_params(gen, gb_int8=True)")
+    bias = p["mlp_gb"]["bias"]
     with annotate("s2p.mat.gb"):
         if gb_int8:
-            gb = _conv_gb_int8(h, p["mlp_gb_q"], p["mlp_gb"]["bias"])
+            gb, bias = _conv_gb_int8(h, p["mlp_gb_q"], bias), None
         else:
-            gb = _cl(F.conv2d(_cl(h), p["mlp_gb"]["weight"], p["mlp_gb"]["bias"], padding=1))
+            gb = _cl(F.conv2d(_cl(h), p["mlp_gb"]["weight"], None, padding=1))
     C = gb.shape[1] // 2
     if "scale" in p:  # SPADE's batch norm, its running statistics folded
-        return spade_norm_nchw(x, gb[:, :C], gb[:, C:], p["scale"], p["shift"])
-    return mat_norm_nchw(x, gb[:, :C], gb[:, C:])
+        return spade_norm_nchw(x, gb[:, :C], gb[:, C:], p["scale"], p["shift"], bias)
+    return mat_norm_nchw(x, gb[:, :C], gb[:, C:], bias)
 
 
 def _mat_norm_fast(x: torch.Tensor, e: torch.Tensor, image_feat: torch.Tensor,

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -85,24 +85,31 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (x - mean) * torch.rsqrt(var + eps)
 
 
-def mat_norm_nchw(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+def mat_norm_nchw(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                  gb_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``instance_norm(x) * (1 + gamma) + beta`` on NCHW tensors through the
-    fused kernel's NHWC views (gamma and beta may be channel slices)."""
+    fused kernel's NHWC views (gamma and beta may be channel slices), with
+    the γ‖β conv's bias ``gb_bias`` ``[2C]`` folded into the kernel when
+    given."""
     nhwc = lambda t: t.permute(0, 2, 3, 1)
+    kw = {} if gb_bias is None else dict(gb_bias=gb_bias)
     with annotate("s2p.mat.norm"):
-        out = fused_mat_norm(nhwc(x.contiguous(memory_format=CL)), nhwc(gamma), nhwc(beta))
+        out = fused_mat_norm(nhwc(x.contiguous(memory_format=CL)), nhwc(gamma), nhwc(beta), **kw)
     return out.permute(0, 3, 1, 2)
 
 
 def spade_norm_nchw(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                    scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+                    scale: torch.Tensor, shift: torch.Tensor,
+                    gb_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``(x·scale + shift) * (1 + gamma) + beta`` on NCHW tensors, with f32
     per-channel ``scale``/``shift`` ``[C]`` (a batch norm's statistics,
-    folded), through the SPADE-norm kernel's NHWC views."""
+    folded), through the SPADE-norm kernel's NHWC views, with the γ‖β conv's
+    bias ``gb_bias`` ``[2C]`` folded into the kernel when given."""
     nhwc = lambda t: t.permute(0, 2, 3, 1)
+    kw = {} if gb_bias is None else dict(gb_bias=gb_bias)
     with annotate("s2p.mat.norm"):
         out = spade_norm(nhwc(x.contiguous(memory_format=CL)), nhwc(gamma), nhwc(beta),
-                         scale, shift)
+                         scale, shift, **kw)
     return out.permute(0, 3, 1, 2)
 
 

@@ -92,3 +92,48 @@ def test_fast_path_rejects_sat_modes():
     _, _, gen = make_pair(64, "sat_state")
     with pytest.raises(ValueError, match="MAT layout"):
         fuse_fast_params(gen)
+
+
+@pytest.mark.parametrize("gb_int8", [False, True])
+@pytest.mark.parametrize("block_level", [True, False])
+def test_gb_bias_is_folded_into_the_norm_once(monkeypatch, block_level, gb_int8):
+    """The float path runs each γ‖β conv without its bias and hands the bias
+    to the MAT norm; the int8 path adds it in its own epilogue and hands the
+    norm none, so no path adds it twice. Both stay where the existing tests
+    hold them: the float path at the module path, the int8 path at the
+    float path's PSNR bar."""
+    import s2p_tpu_torch.gan.fast_inference as fi
+
+    _, _, gen = make_pair(64)
+    s, img = (torch.from_numpy(a) for a in inputs(64))
+    fused = fuse_fast_params(gen, block_level=block_level, gb_int8=gb_int8)
+    norms = [blk[n] for blk in fused["blocks"] for n in blk["norms"]]
+    gb_weights = {id(p["mlp_gb"]["weight"]) for p in norms}
+    conv_biases, norm_biases = [], []
+    real_conv, real_norm = F.conv2d, fi.mat_norm_nchw
+
+    def conv_spy(inp, weight, bias=None, *args, **kw):
+        if id(weight) in gb_weights:
+            conv_biases.append(bias)
+        return real_conv(inp, weight, bias, *args, **kw)
+
+    def norm_spy(x, gamma, beta, gb_bias=None):
+        norm_biases.append(gb_bias)
+        return real_norm(x, gamma, beta, gb_bias)
+
+    monkeypatch.setattr(fi.F, "conv2d", conv_spy)
+    monkeypatch.setattr(fi, "mat_norm_nchw", norm_spy)
+    out = fast_apply(gen, fused, s, img, gb_int8=gb_int8)
+    monkeypatch.undo()
+    assert len(norms) == 13
+    if gb_int8:
+        assert conv_biases == [] and norm_biases == [None] * 13
+        float_out = fast_apply(gen, fused, s, img).numpy()
+        mse = float(np.mean((out.numpy() - float_out) ** 2))
+        assert 10 * np.log10(4.0 / max(mse, 1e-12)) > 40.0
+    else:
+        assert conv_biases == [None] * 13
+        assert [id(b) for b in norm_biases] == [id(p["mlp_gb"]["bias"]) for p in norms]
+        with torch.no_grad():
+            module = gen(s, img).numpy()
+        np.testing.assert_allclose(out.numpy(), module, rtol=2e-4, atol=2e-4)

@@ -16,6 +16,8 @@ from s2p_tpu_torch.gan.cuda_kernels import (
     _batch_pixel_strides,
     fused_mat_norm,
     fused_mat_norm_plain,
+    spade_norm,
+    spade_norm_plain,
 )
 
 
@@ -85,3 +87,102 @@ def test_stride_checks_reject_what_the_kernel_cannot_read():
         _batch_pixel_strides(t.transpose(1, 2), "beta")
     with pytest.raises(ValueError, match="unsupported device"):
         fused_mat_norm(t.to("meta"), t.to("meta"), t.to("meta"))
+
+
+# -- the γ‖β conv's bias, folded into either norm kernel (gb_bias) --------------
+
+def _mat_before(x, g, b):
+    """The MAT norm as computed before the fold: (x − μ)·rstd·(1 + γ) + β."""
+    xf = x.float()
+    mean = xf.mean(dim=(1, 2), keepdim=True)
+    rstd = torch.rsqrt((xf - mean).square().mean(dim=(1, 2), keepdim=True) + 1e-5)
+    return ((xf - mean) * rstd * (1.0 + g.float()) + b.float()).to(x.dtype)
+
+
+# kernel → (wrapper, plain version, extra operands from a generator, the
+# modulation as computed before the fold)
+KERNELS = dict(
+    mat=(fused_mat_norm, fused_mat_norm_plain, lambda C, gen: (),
+         lambda x, g, b: _mat_before(x, g, b)),
+    spade=(spade_norm, spade_norm_plain,
+           lambda C, gen: (torch.rand(C, generator=gen) + 0.5, torch.randn(C, generator=gen)),
+           lambda x, g, b, a, s: ((x.float() * a + s) * (1.0 + g.float()) + b.float()).to(
+               x.dtype)),
+)
+
+
+def _with_bias(kernel, C, dtype, strided, seed=3):
+    """x, γ, β, the kernel's extra operands (SPADE's folded f32 statistics)
+    and a γ‖β bias [2C] in ``dtype``; γ and β as the two channel halves of
+    one [B,H,W,2C] map when ``strided`` (the fast path's layout)."""
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn(2, 5, 7, C, generator=gen) * 3 + 1).to(dtype)
+    gb = (0.5 * torch.randn(2, 5, 7, 2 * C, generator=gen)).to(dtype)
+    extra = KERNELS[kernel][2](C, gen)
+    bias = (0.5 * torch.randn(2 * C, generator=gen)).to(dtype)
+    g, b = (gb[..., :C], gb[..., C:]) if strided else (gb[..., :C].contiguous(),
+                                                         gb[..., C:].contiguous())
+    return x, g, b, extra, bias
+
+
+@pytest.mark.parametrize("strided", [True, False])
+@pytest.mark.parametrize("C", [12, 64])  # 12: the kernels' scalar path
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_folded_bias_is_the_bias_added_to_gamma_and_beta_first(kernel, dtype, C, strided):
+    """The fold adds the bias in f32, (1 + b_γ) + γ and β + b_β; adding it to
+    γ and β first (in f32) gives the same numbers up to f32 re-association,
+    which a cast to bf16 leaves within one bf16 step."""
+    wrapper, plain, _, _ = KERNELS[kernel]
+    x, g, b, extra, bias = _with_bias(kernel, C, dtype, strided)
+    got = plain(x, g, b, *extra, gb_bias=bias)
+    with torch.no_grad():
+        assert torch.equal(wrapper(x, g, b, *extra, gb_bias=bias), got)
+    bf = bias.float()
+    want = plain(x.float(), g.float() + bf[:C], b.float() + bf[C:], *extra)
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        assert (got - want).abs().max() <= 1e-5 * max(1.0, want.abs().max().item())
+    else:
+        assert ((got.float() - want).abs() <= want.abs() * 2.0 ** -7 + 1e-6).all()
+    assert (got.float() - plain(x, g, b, *extra).float()).abs().max() > 0.1
+
+
+@pytest.mark.parametrize("C", [12, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_no_bias_is_bit_identical_to_the_unfolded_norm(kernel, dtype, C):
+    """``gb_bias=None`` computes what the norm computed before the fold, in
+    f32, bit for bit; a zero bias too."""
+    wrapper, plain, _, before = KERNELS[kernel]
+    x, g, b, extra, bias = _with_bias(kernel, C, dtype, strided=True)
+    want = before(x, g, b, *extra)
+    with torch.no_grad():
+        assert torch.equal(plain(x, g, b, *extra), want)
+        assert torch.equal(plain(x, g, b, *extra, gb_bias=None), want)
+        assert torch.equal(wrapper(x, g, b, *extra), want)
+        assert torch.equal(wrapper(x, g, b, *extra, gb_bias=torch.zeros_like(bias)), want)
+
+
+@pytest.mark.parametrize("bad", ["shape", "2d", "dtype", "device", "strided"])
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_wrapper_rejects_a_bias_it_cannot_fold(kernel, bad):
+    wrapper = KERNELS[kernel][0]
+    x, g, b, extra, bias = _with_bias(kernel, 12, torch.float32, strided=True)
+    wrong = dict(shape=bias[:-1], **{"2d": bias.view(2, 12)}, dtype=bias.double(),
+                 device=bias.to("meta"), strided=torch.zeros(48)[::2])[bad]
+    with torch.no_grad(), pytest.raises(ValueError, match="gb_bias"):
+        wrapper(x, g, b, *extra, gb_bias=wrong)
+
+
+@pytest.mark.parametrize("leaf", ["x", "gamma", "bias"])
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_folded_bias_raises_under_recording_autograd(kernel, leaf):
+    """The fold has no backward: training's norms take no bias."""
+    wrapper = KERNELS[kernel][0]
+    x, g, b, extra, bias = _with_bias(kernel, 12, torch.float32, strided=False)
+    dict(x=x, gamma=g, bias=bias)[leaf].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        wrapper(x, g, b, *extra, gb_bias=bias)
+    with torch.no_grad():
+        wrapper(x, g, b, *extra, gb_bias=bias)

@@ -178,9 +178,9 @@ def test_norm_launches_are_the_counted_shapes(monkeypatch):
     seen = []
     real = gen_mod.spade_norm
 
-    def spy(x, gamma, beta, scale, shift):
+    def spy(x, gamma, beta, scale, shift, **kw):
         seen.append(tuple(x.shape[1:]))
-        return real(x, gamma, beta, scale, shift)
+        return real(x, gamma, beta, scale, shift, **kw)
 
     monkeypatch.setattr(gen_mod, "spade_norm", spy)
     opt = tiny_opt()
@@ -196,6 +196,42 @@ def test_norm_launches_are_the_counted_shapes(monkeypatch):
             got[s] = got.get(s, 0) + 1
         assert got == want
     assert spade_counts.norm_shapes(tiny_opt("spadeinstance3x3")) == {}
+
+
+def test_fast_path_folds_the_gb_bias_into_the_norm(monkeypatch):
+    """``synthesize_fast`` runs each γ‖β conv without its bias and hands the
+    bias to the SPADE norm (all 18 a pass); the module path passes none."""
+    import s2p_tpu_torch.gan.fast_inference as fi
+
+    opt = tiny_opt()
+    gen, ids = port_generator(opt, seeded_spade_weights(opt)), label_ids(n=2)
+    params = fuse_fast_params(gen)
+    norms = [blk[n] for blk in params["blocks"] for n in blk["norms"]]
+    gb_weights = {id(p["mlp_gb"]["weight"]) for p in norms}
+    conv_biases, norm_biases = [], []
+    real_conv, real_norm = F.conv2d, gen_mod.spade_norm
+
+    def conv_spy(inp, weight, bias=None, *args, **kw):
+        if id(weight) in gb_weights:
+            conv_biases.append(bias)
+        return real_conv(inp, weight, bias, *args, **kw)
+
+    def norm_spy(x, gamma, beta, scale, shift, gb_bias=None):
+        norm_biases.append(gb_bias)
+        return real_norm(x, gamma, beta, scale, shift, gb_bias=gb_bias)
+
+    monkeypatch.setattr(fi.F, "conv2d", conv_spy)
+    monkeypatch.setattr(gen_mod, "spade_norm", norm_spy)
+    with torch.no_grad():
+        gen(label_onehot(ids, gen.semantic_nc))
+    assert norm_biases == [None] * 18 and conv_biases == []
+    norm_biases.clear()
+    fast = synthesize_fast(gen, ids, params)
+    assert conv_biases == [None] * 18
+    assert [id(bias) for bias in norm_biases] == [id(p["mlp_gb"]["bias"]) for p in norms]
+    monkeypatch.undo()
+    want = reference_frames(seeded_spade_weights(opt), opt, ids)
+    assert (fast - want).abs().max() < PATH_TOL
 
 
 def test_model_flops_match_the_flop_counter():
