@@ -16,7 +16,10 @@ is a separate apply path held to the module path with a tolerance.
 Tensors here are NCHW in channels_last memory, as in ``generator.py``. The
 fast path runs an ``S2PGenerator``'s own layers, except that each MAT norm
 reads operands that ``fuse_fast_params`` precomputes from the same weights.
-The modulated instance norm runs through the fused CUDA kernel on the card.
+A block's 2–3 norms condition on the same input, so their hidden maps come
+from ONE wide shared conv, split per norm (``_hidden_maps``), with the
+state half of every norm's terms reduced in ONE matmul per step. The
+modulated instance norm runs through the fused CUDA kernel on the card.
 The spans are the module path's (``s2p.gen.*``, ``s2p.mat.*``), plus
 ``s2p.fast.cmap`` around each constant-map assembly and ``s2p.fast.fuse``
 around the fusion of the operands.
@@ -30,23 +33,24 @@ the float path's by 8-bit quantization noise.
 
 A ``SPADEGenerator`` (``netG=spade``) renders through ``synthesize_fast``:
 its condition is a label map that varies over space, so the constant-map
-shortcut does not apply, but the block-level fusion does: each of a
-block's 2–3 norms sees the same map, so one wide shared conv (split per
-norm) and the fused γ‖β conv per norm, then the SPADE-norm kernel with the
-running statistics folded at fuse time. The one-hot maps are made on the
-device from the label ids, per resolution (spans ``s2p.spade.seg`` and
-``s2p.spade.onehot``), with their channels padded to a multiple of 8.
+shortcut does not apply, but the rest does: the same per-block fusion
+(``_fuse_block``) and hidden-map step, the fused γ‖β conv per norm, then
+the SPADE-norm kernel with the running statistics folded at fuse time.
+The one-hot maps are made on the device from the label ids, per
+resolution (spans ``s2p.spade.seg`` and ``s2p.spade.onehot``), with their
+channels padded to a multiple of 8.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from s2p_tpu_torch.gan.generator import (CL, S2PGenerator, SPADEGenerator, label_onehot,
                                          mat_norm_nchw, spade_norm_nchw, upsample_nearest)
+from s2p_tpu_torch.gan.rollout import generate_rollout
 from s2p_tpu_torch.utils.profiling import annotate
 
 Params = Dict[str, Any]
@@ -140,68 +144,70 @@ def _quantize_gb_kernel(weight: torch.Tensor) -> Params:
     return dict(kernel_i8=q.to(torch.int8).contiguous(), scale_w=scale)
 
 
-def _norm_params(norm: torch.nn.Module, S: int, gb_int8: bool = False) -> Params:
-    """Per-norm fusions: γ‖β conv ``mlp_gb``, the state half's constant-map
-    terms, the image half ``k_img`` of ``mlp_shared`` and, with ``gb_int8``,
-    the quantized γ‖β weight ``mlp_gb_q``."""
-    k = norm.mlp_shared.weight  # [hidden, S + C_img, 3, 3]
-    p = dict(
-        mlp_shared_bias=norm.mlp_shared.bias,
-        mlp_gb=dict(weight=_cl(torch.cat([norm.mlp_gamma.weight, norm.mlp_beta.weight], 0)),
-                    bias=torch.cat([norm.mlp_gamma.bias, norm.mlp_beta.bias], 0)),
-        cmap_terms=_const_map_terms(k[:, :S]),
-        k_img=_cl(k[:, S:]),
-    )
-    if gb_int8:
-        p["mlp_gb_q"] = _quantize_gb_kernel(p["mlp_gb"]["weight"])
-    return p
+def _fuse_block(block: torch.nn.Module, cond_weight: Callable[[torch.Tensor], torch.Tensor],
+                gb_int8: bool = False) -> Params:
+    """One res-block's fused operands, for either family. Per norm
+    ``mlp_gb``: the γ and β convs as one conv over the hidden map; with
+    ``gb_int8`` also ``mlp_gb_q``, that weight quantized to int8; for a
+    SPADE batch norm ``scale``/``shift``, its running statistics folded in
+    f32. Per block ``shared_cat``: the 2–3 norms of a block condition on the
+    same input, so their ``mlp_shared`` convs run as ONE conv: its weight
+    each norm's ``cond_weight(mlp_shared.weight)``, the part over the
+    condition the fast path convolves, stacked in ``norms`` order; and
+    ``widths``, each norm's share of the output."""
+    norms = [n for n in NORMS if hasattr(block, n)]
+    mods = [getattr(block, n) for n in norms]
+    bp: Params = dict(norms=norms, shared_cat=dict(
+        weight=_cl(torch.cat([cond_weight(m.mlp_shared.weight) for m in mods], 0)),
+        bias=torch.cat([m.mlp_shared.bias for m in mods], 0),
+        widths=[m.mlp_shared.bias.shape[0] for m in mods]))
+    for n, m in zip(norms, mods):
+        gb = dict(weight=_cl(torch.cat([m.mlp_gamma.weight, m.mlp_beta.weight], 0)),
+                  bias=torch.cat([m.mlp_gamma.bias, m.mlp_beta.bias], 0))
+        bp[n] = dict(mlp_gb=gb)
+        if gb_int8:
+            bp[n]["mlp_gb_q"] = _quantize_gb_kernel(gb["weight"])
+        if getattr(m, "param_free", None) == "batch":
+            bp[n]["scale"], bp[n]["shift"] = m.param_free_norm.folded()
+    return bp
 
 
 @torch.no_grad()
-def fuse_fast_params(gen: S2PGenerator | SPADEGenerator, block_level: bool = True,
-                     gb_int8: bool = False) -> Params:
+def fuse_fast_params(gen: S2PGenerator | SPADEGenerator, gb_int8: bool = False) -> Params:
     """Precompute, once and outside the rollout loop, the fused operands the
-    fast path reads beside ``gen``'s own layers.
+    fast path reads beside ``gen``'s own layers: per block ``_fuse_block``'s.
+    The two families differ in what a block's shared conv runs over.
 
-    Per norm: ``mlp_gb`` (γ and β convs as one conv over ``h``),
-    ``cmap_terms`` and ``k_img``. With ``block_level`` also, per block,
-    ``shared_cat``: the 2–3 norms of a block condition on the same inputs,
-    so their image-half convs run as ONE conv; and top-level
-    ``cmap_terms_all`` ``[S, 9, ΣF]``: every norm's state terms in (block,
-    norm_0, norm_1, norm_s) order, so the whole network's state modulation
-    is ONE matmul per step. ``block_level=False`` keeps only the per-norm
-    fusions: the block-level concat holds a 2–3× wider hidden map, which
-    costs memory at very large batch. ``gb_int8`` adds, per norm,
-    ``mlp_gb_q``: the γ‖β weight quantized to int8 for the opt-in int8
-    modulation; the float operands stay, so the float path is unchanged.
+    An ``S2PGenerator``'s runs over the image feature only: ``shared_cat``
+    holds the image half ``[:, S:]`` of each ``mlp_shared`` weight, and the
+    state half ``[:, :S]`` goes into top-level ``cmap_terms_all`` ``[S, 9,
+    ΣF]``, every norm's constant-map terms in (block, norm_0, norm_1, norm_s)
+    order, so the whole network's state modulation is ONE matmul per step.
+    ``gb_int8`` adds the int8 γ‖β weights for the opt-in int8 modulation;
+    the float operands stay, so the float path is unchanged.
 
-    A ``SPADEGenerator`` gets its own operands (``_fuse_spade``): block-level
-    fusion only, no int8."""
+    A ``SPADEGenerator``'s runs over the one-hot label map, whose width,
+    ``label_channels``, is ``semantic_nc`` padded to ``LABEL_ALIGN``: the
+    weights' extra inputs (``shared_cat``'s and ``fc``'s) are zero, so the
+    sums are unchanged. It runs in float only."""
     if isinstance(gen, SPADEGenerator):
-        if gb_int8 or not block_level:
-            raise ValueError("the SPADE fast path runs block-level fusion in float only")
-        return _fuse_spade(gen)
+        if gb_int8:
+            raise ValueError("the SPADE fast path runs in float only")
+        with annotate("s2p.fast.fuse"):
+            cp = -(-gen.semantic_nc // LABEL_ALIGN) * LABEL_ALIGN
+            return dict(blocks=[_fuse_block(getattr(gen, name), lambda w: _pad_inputs(w, cp))
+                                for name, *_ in gen.schedule],
+                        label_channels=cp,
+                        fc=dict(weight=_pad_inputs(gen.fc.weight, cp), bias=gen.fc.bias))
     if gen.mat_mode != "mat":
         raise ValueError(f"the fast path specializes the MAT layout, not {gen.mat_mode!r}")
     with annotate("s2p.fast.fuse"):
         S = gen.state_fc1.weight.shape[0]
-        blocks: List[Params] = []
-        all_terms: List[torch.Tensor] = []
-        for i in range(len(gen.sizes)):
-            block = getattr(gen, f"block_{i}")
-            norms = [n for n in NORMS if hasattr(block, n)]
-            bp: Params = dict(norms=norms, **{n: _norm_params(getattr(block, n), S, gb_int8)
-                                              for n in norms})
-            if block_level:
-                bp["shared_cat"] = dict(
-                    weight=_cl(torch.cat([bp[n]["k_img"] for n in norms], 0)),
-                    bias=torch.cat([bp[n]["mlp_shared_bias"] for n in norms], 0))
-                all_terms.extend(bp[n]["cmap_terms"] for n in norms)
-            blocks.append(bp)
-        p: Params = dict(blocks=blocks)
-        if all_terms:
-            p["cmap_terms_all"] = torch.cat(all_terms, -1)
-    return p
+        blocks = [getattr(gen, f"block_{i}") for i in range(len(gen.sizes))]
+        fused = [_fuse_block(b, lambda w: w[:, S:], gb_int8) for b in blocks]
+        terms = [_const_map_terms(getattr(b, n).mlp_shared.weight[:, :S])
+                 for b, bp in zip(blocks, fused) for n in bp["norms"]]
+        return dict(blocks=fused, cmap_terms_all=torch.cat(terms, -1))
 
 
 def _im2col_3x3(q: torch.Tensor) -> torch.Tensor:
@@ -263,27 +269,21 @@ def _modulate(x: torch.Tensor, h: torch.Tensor, p: Params, gb_int8: bool = False
     return mat_norm_nchw(x, gb[:, :C], gb[:, C:], bias)
 
 
-def _mat_norm_fast(x: torch.Tensor, e: torch.Tensor, image_feat: torch.Tensor,
-                   p: Params, gb_int8: bool = False) -> torch.Tensor:
-    """MATNorm with the shared conv split: state half by the constant-map
-    shortcut, image half as a real conv."""
-    with annotate("s2p.mat.hidden"):
-        h = F.conv2d(image_feat, p["k_img"], padding=1)
-        h = _add_const_map(h, _reduce_terms(e, p["cmap_terms"]), p["mlp_shared_bias"]).relu_()
-    return _modulate(x, h, p, gb_int8)
-
-
-def _block_hidden_maps(image_feat: torch.Tensor, t_blk: torch.Tensor, p: Params,
-                       norms: List[str]) -> List[torch.Tensor]:
-    """All of a block's hidden maps in one pass: ONE conv over
-    ``image_feat`` plus the pre-reduced state terms ``t_blk``, split back
-    per norm."""
-    with annotate("s2p.mat.hidden"):
-        sc = p["shared_cat"]
-        h = _add_const_map(F.conv2d(image_feat, sc["weight"], padding=1), t_blk,
-                           sc["bias"]).relu_()
-        widths = [p[n]["mlp_shared_bias"].shape[0] for n in norms]
-        return list(torch.split(h, widths, dim=1))
+def _hidden_maps(cond: torch.Tensor, p: Params,
+                 state_terms: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """A block's hidden maps, one per norm, in one pass: ONE conv over the
+    condition ``cond`` (S2P's image feature, SPADE's one-hot label map);
+    for S2P the constant-map terms ``state_terms`` ``[B, 9, ΣF]`` of the
+    state half added, the conv's bias folded into their full-map add; ReLU;
+    split per norm by the fused widths. The caller opens ``s2p.mat.hidden``
+    around it, so that SPADE's one-hot maps, made at their first use, count
+    there."""
+    sc = p["shared_cat"]
+    if state_terms is None:
+        h = F.conv2d(cond, sc["weight"], sc["bias"], padding=1)
+    else:
+        h = _add_const_map(F.conv2d(cond, sc["weight"], padding=1), state_terms, sc["bias"])
+    return dict(zip(p["norms"], torch.split(h.relu_(), sc["widths"], dim=1)))
 
 
 def _res_block(x: torch.Tensor, block: torch.nn.Module, norm) -> torch.Tensor:
@@ -293,21 +293,6 @@ def _res_block(x: torch.Tensor, block: torch.nn.Module, norm) -> torch.Tensor:
     h = block.conv_1(F.leaky_relu(norm(h, "norm_1"), 0.2))
     s = block.conv_s(norm(x, "norm_s")) if hasattr(block, "conv_s") else x
     return s + h
-
-
-def _res_block_fast(x: torch.Tensor, e: torch.Tensor, image_feat: torch.Tensor,
-                    block: torch.nn.Module, p: Params,
-                    t_blk: Optional[torch.Tensor] = None, gb_int8: bool = False
-                    ) -> torch.Tensor:
-    """``MATResBlock.forward`` with the fast MAT norms; ``block`` supplies
-    the res-block convs, ``p`` the block's fused operands."""
-    norms = p["norms"]
-    if t_blk is not None and "shared_cat" in p:
-        hmaps = dict(zip(norms, _block_hidden_maps(image_feat, t_blk, p, norms)))
-        mat_norm = lambda x, n: _modulate(x, hmaps[n], p[n], gb_int8)
-    else:
-        mat_norm = lambda x, n: _mat_norm_fast(x, e, image_feat, p[n], gb_int8)
-    return _res_block(x, block, mat_norm)
 
 
 @torch.no_grad()
@@ -330,19 +315,18 @@ def fast_apply(gen: S2PGenerator, params: Params, state: torch.Tensor,
             e = gen.embed_state(state)
             x = gen.seed_map(e)
             # the whole network's state-side reduction in ONE matmul, sliced per block
-            t_all = (_reduce_terms(e, params["cmap_terms_all"]) if "cmap_terms_all" in params
-                     else None)
+            t_all = _reduce_terms(e, params["cmap_terms_all"])
         off = 0
         for i, size in enumerate(sizes):
-            blk = params["blocks"][i]
-            t_blk = None
-            if t_all is not None and "shared_cat" in blk:
-                w = blk["shared_cat"]["weight"].shape[0]
-                t_blk = t_all[:, :, off:off + w]
-                off += w
+            p = params["blocks"][i]
+            w = p["shared_cat"]["weight"].shape[0]
+            t_blk = t_all[:, :, off:off + w]
+            off += w
             with annotate(f"s2p.gen.block_{i}"):
-                x = _res_block_fast(x, e, enc_by_size[size], getattr(gen, f"block_{i}"), blk,
-                                    t_blk, gb_int8)
+                with annotate("s2p.mat.hidden"):
+                    hmaps = _hidden_maps(enc_by_size[size], p, t_blk)
+                x = _res_block(x, getattr(gen, f"block_{i}"),
+                               lambda t, n: _modulate(t, hmaps[n], p[n], gb_int8))
             if i < len(sizes) - 1:
                 with annotate("s2p.gen.upsample"):
                     x = upsample_nearest(x, sizes[i + 1])
@@ -353,20 +337,14 @@ def fast_apply(gen: S2PGenerator, params: Params, state: torch.Tensor,
 
 @torch.no_grad()
 def generate_rollout_fast(gen: S2PGenerator, init_image: torch.Tensor,
-                          states: torch.Tensor, block_fusion: bool = True,
-                          gb_int8: bool = False) -> torch.Tensor:
-    """``seq_len`` autoregressive steps with ``fast_apply``: init_image
-    ``[B, H, W, C]``, states ``[T, B, S]`` (s_{t+1} for each step) →
-    frames ``[T, B, H, W, C]``. The weights are fused once, before the
-    loop; ``block_fusion`` toggles the block-level fusion (see
-    ``fuse_fast_params``), ``gb_int8`` the int8 γ‖β convs."""
-    params = fuse_fast_params(gen, block_level=block_fusion, gb_int8=gb_int8)
-    frames = []
-    img = init_image
-    for s in states:
-        img = fast_apply(gen, params, s, img, gb_int8)
-        frames.append(img)
-    return torch.stack(frames)
+                          states: torch.Tensor, gb_int8: bool = False) -> torch.Tensor:
+    """``generate_rollout`` with ``fast_apply`` as the step: init_image
+    ``[B, H, W, C]``, states ``[T, B, S]`` (s_{t+1} for each step) → frames
+    ``[T, B, H, W, C]``. The weights are fused once, before the loop;
+    ``gb_int8`` runs the int8 γ‖β convs."""
+    params = fuse_fast_params(gen, gb_int8=gb_int8)
+    return generate_rollout(lambda s, img: fast_apply(gen, params, s, img, gb_int8),
+                            init_image, states)
 
 
 # -- netG=spade ------------------------------------------------------------------
@@ -376,37 +354,6 @@ def _pad_inputs(weight: torch.Tensor, channels: int) -> torch.Tensor:
     ``channels``, in channels_last memory."""
     pad = weight.new_zeros(weight.shape[0], channels - weight.shape[1], *weight.shape[2:])
     return _cl(torch.cat([weight, pad], 1))
-
-
-def _fuse_spade(gen: SPADEGenerator) -> Params:
-    """A ``SPADEGenerator``'s fast-path operands: per block ``shared_cat``
-    (its norms' ``mlp_shared`` as ONE conv over the label map, their widths
-    in ``norms`` order) and per norm ``mlp_gb`` (γ and β convs as one) and,
-    for a batch norm, the folded f32 statistics ``scale``/``shift``; ``fc``;
-    and ``label_channels``, the one-hot width padded to ``LABEL_ALIGN``
-    (the padded weights' extra inputs are zero, so the sums are unchanged)."""
-    with annotate("s2p.fast.fuse"):
-        cp = -(-gen.semantic_nc // LABEL_ALIGN) * LABEL_ALIGN
-        blocks: List[Params] = []
-        for name, *_ in gen.schedule:
-            block = getattr(gen, name)
-            norms = [n for n in NORMS if hasattr(block, n)]
-            bp: Params = dict(norms=norms)
-            for n in norms:
-                m = getattr(block, n)
-                bp[n] = dict(
-                    mlp_shared_bias=m.mlp_shared.bias,
-                    mlp_gb=dict(weight=_cl(torch.cat([m.mlp_gamma.weight, m.mlp_beta.weight], 0)),
-                                bias=torch.cat([m.mlp_gamma.bias, m.mlp_beta.bias], 0)))
-                if m.param_free == "batch":
-                    bp[n]["scale"], bp[n]["shift"] = m.param_free_norm.folded()
-            bp["shared_cat"] = dict(
-                weight=_pad_inputs(torch.cat([getattr(block, n).mlp_shared.weight
-                                              for n in norms], 0), cp),
-                bias=torch.cat([bp[n]["mlp_shared_bias"] for n in norms], 0))
-            blocks.append(bp)
-        return dict(blocks=blocks, label_channels=cp,
-                    fc=dict(weight=_pad_inputs(gen.fc.weight, cp), bias=gen.fc.bias))
 
 
 def downsample_ids(ids: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
@@ -459,11 +406,7 @@ def synthesize_fast(gen: SPADEGenerator, label_ids: torch.Tensor,
             p = params["blocks"][i]
             with annotate(f"s2p.gen.block_{i}"):
                 with annotate("s2p.mat.hidden"):
-                    sc = p["shared_cat"]
-                    h = F.conv2d(seg_at(tuple(x.shape[2:])), sc["weight"], sc["bias"],
-                                 padding=1).relu_()
-                    widths = [p[n]["mlp_shared_bias"].shape[0] for n in p["norms"]]
-                    hmaps = dict(zip(p["norms"], torch.split(h, widths, dim=1)))
+                    hmaps = _hidden_maps(seg_at(tuple(x.shape[2:])), p)
                 x = _res_block(x, getattr(gen, name),
                                lambda t, n: _modulate(t, hmaps[n], p[n]))
         with annotate("s2p.gen.head"):

@@ -54,18 +54,18 @@ def test_const_map_border_masks_exact_in_bf16_at_large_res():
     assert out[0, 0] == -1 - 3 + 10 and out[-1, -1] == -2 - 4 + 40
 
 
-@pytest.mark.parametrize("block_level", [True, False])
 @pytest.mark.parametrize("size", [64, 25, 100])
-def test_fast_apply_matches_jax(size, block_level):
+def test_fast_apply_matches_jax(size):
     """100 is the bridge's ragged chain 100 → 50 → 25 → 13 → 7."""
     jgen, params, gen = make_pair(size)
     s, img = inputs(size)
     jfast = jax.jit(lambda p, s, i: jax_fast_apply(
-        jgen, {"params": jax_fuse_fast_params(p, block_level=block_level)}, s, i))
+        jgen, {"params": jax_fuse_fast_params(p)}, s, i))
     ref = np.asarray(jfast(params, s, img))
-    fused = fuse_fast_params(gen, block_level=block_level)
-    assert ("cmap_terms_all" in fused) == block_level
-    assert all(("shared_cat" in b) == block_level for b in fused["blocks"])
+    fused = fuse_fast_params(gen)
+    widths = [sum(b["shared_cat"]["widths"]) for b in fused["blocks"]]
+    assert widths == [b["shared_cat"]["weight"].shape[0] for b in fused["blocks"]]
+    assert fused["cmap_terms_all"].shape[-1] == sum(widths)
     out = fast_apply(gen, fused, torch.from_numpy(s), torch.from_numpy(img)).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
     with torch.no_grad():
@@ -82,8 +82,6 @@ def test_fast_rollout_matches_jax_and_module_rollout():
     out = generate_rollout_fast(gen, img_t, states_t)
     assert out.shape == ref.shape == (3, 2, 64, 64, 3)
     np.testing.assert_allclose(out.numpy(), ref, rtol=5e-3, atol=5e-3)
-    per_norm = generate_rollout_fast(gen, img_t, states_t, block_fusion=False)
-    np.testing.assert_allclose(per_norm.numpy(), out.numpy(), rtol=1e-4, atol=1e-4)
     module = generate_rollout(gen, img_t, states_t)
     np.testing.assert_allclose(module.numpy(), out.numpy(), rtol=5e-3, atol=5e-3)
 
@@ -95,8 +93,7 @@ def test_fast_path_rejects_sat_modes():
 
 
 @pytest.mark.parametrize("gb_int8", [False, True])
-@pytest.mark.parametrize("block_level", [True, False])
-def test_gb_bias_is_folded_into_the_norm_once(monkeypatch, block_level, gb_int8):
+def test_gb_bias_is_folded_into_the_norm_once(monkeypatch, gb_int8):
     """The float path runs each γ‖β conv without its bias and hands the bias
     to the MAT norm; the int8 path adds it in its own epilogue and hands the
     norm none, so no path adds it twice. Both stay where the existing tests
@@ -106,7 +103,7 @@ def test_gb_bias_is_folded_into_the_norm_once(monkeypatch, block_level, gb_int8)
 
     _, _, gen = make_pair(64)
     s, img = (torch.from_numpy(a) for a in inputs(64))
-    fused = fuse_fast_params(gen, block_level=block_level, gb_int8=gb_int8)
+    fused = fuse_fast_params(gen, gb_int8=gb_int8)
     norms = [blk[n] for blk in fused["blocks"] for n in blk["norms"]]
     gb_weights = {id(p["mlp_gb"]["weight"]) for p in norms}
     conv_biases, norm_biases = [], []

@@ -128,6 +128,24 @@ def test_deeper_upsampling_schedules_are_refused(mode):
             fn(opt)
 
 
+def test_fast_operands_are_fused_in_float_per_block():
+    """``fuse_fast_params`` on a SPADE generator: per block one shared conv
+    over the one-hot map padded to ``label_channels``, split by ``widths``;
+    a batch norm's folded statistics per norm; no int8 operands."""
+    gen = port_generator(tiny_opt(), seeded_spade_weights(tiny_opt()))
+    params = fuse_fast_params(gen)
+    cp = params["label_channels"]
+    assert cp % 8 == 0 and cp >= gen.semantic_nc
+    assert params["fc"]["weight"].shape[1] == cp
+    for blk in params["blocks"]:
+        sc = blk["shared_cat"]
+        assert sc["weight"].shape[:2] == (sum(sc["widths"]), cp)
+        assert sc["bias"].shape == (sum(sc["widths"]),) and len(sc["widths"]) == len(blk["norms"])
+        assert all({"scale", "shift"} <= blk[n].keys() for n in blk["norms"])
+    with pytest.raises(ValueError, match="float only"):
+        fuse_fast_params(gen, gb_int8=True)
+
+
 def test_running_statistics_stay_float32_in_a_bf16_generator():
     gen = port_generator(tiny_opt(), seeded_spade_weights(tiny_opt())).to(torch.bfloat16)
     stats = [b for n, b in gen.named_buffers() if "running_" in n]
