@@ -303,6 +303,18 @@ TP world's batch of 2·world, f32, forward.
     the module path none with a bias, and its frames must hold to the
     module path in f32 (TF32 off) within the cell's limits.
 
+27. the hidden-map kernel (a main path each): one fast-path pass of each
+    cell's generator (``cheetah64-rollout-b256`` and
+    ``walker100-bridge-b256`` through ``fast_apply``, ``spade-ade256-b32``
+    through ``synthesize_fast``; full width, the cell's batch, bf16) must
+    launch ``hidden_maps`` 5 times with the constant-map terms (S2P) or 7
+    times without (GauGAN), counts reset just before, and one module-path
+    pass none; at every call's shapes of those passes the kernel is held to
+    ``hidden_maps_plain`` in bf16 and f32 (the terms as the same strided
+    slice of a wider tensor), with its device time beside its bytes-bound
+    time (read h, write the maps), the plain version's and that of the glue
+    it replaced, per shape and per pass.
+
 ``--ab DIR`` runs phases 1 and 2, then times the norm kernels against
 those of the checkout in DIR in turns (without and with the γ‖β bias
 folded), then the two main paths end to end
@@ -310,7 +322,7 @@ folded), then the two main paths end to end
 its own (``--time-paths ROOT``), in turns, and stops. ``--sweep`` runs
 phases 1 and 2, then times every launch plan of the two kernels at each
 bf16 main-path shape, and stops. ``--spade`` runs phases 1, 2 and 26, and
-stops.
+stops; ``--hidden`` runs phases 1, 2 and 27, and stops.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` also writes a
@@ -4086,6 +4098,192 @@ def phase_spade_path(ck, card: str) -> dict:
                 saturated_share=saturated)
 
 
+HIDDEN_CELLS = ("cheetah64-rollout-b256", "walker100-bridge-b256", SPADE_CELL)
+HIDDEN_F32_TOL = 1e-5  # rtol and atol, as the norm kernels' (the plain version adds in one order)
+
+
+def hidden_map_calls(ck, cell_name: str) -> tuple:
+    """One fast-path pass of the cell's generator (full width, its batch,
+    bf16, seeded weights) on the card: every ``hidden_maps`` call's shapes,
+    recorded by a wrapper, with the launches counted from 0 just before the
+    pass; and the module path's launches over one pass. The S2P cells run
+    ``fast_apply``, the GauGAN cell ``synthesize_fast``."""
+    import torch
+    from portbench import harness, program
+    from s2p_tpu_torch.gan import S2PGenerator, fast_apply, fuse_fast_params, label_onehot
+    from s2p_tpu_torch.gan import fast_inference as fi
+
+    cell = harness.load_cell(cell_name)
+    cfg, B, dev = cell.config, cell.traffic["batch"], torch.device("cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    if cell_name == SPADE_CELL:
+        from s2p_tpu_torch.gan import SPADEGenerator, synthesize_fast
+
+        gen = SPADEGenerator(**cfg["opt"], device=dev).to(torch.bfloat16).eval()
+        gen.requires_grad_(False)
+        ids = torch.randint(0, gen.semantic_nc, (B, *gen.image_hw), generator=g, device=dev,
+                            dtype=torch.uint8)
+        params = fuse_fast_params(gen)
+        fast = lambda: synthesize_fast(gen, ids, params)  # noqa: E731
+        module = lambda: gen(label_onehot(ids, gen.semantic_nc, torch.bfloat16))  # noqa: E731
+    else:
+        gen = S2PGenerator(cfg["state_dim"], device=dev, **program.generator_kwargs(cfg))
+        gen = gen.to(torch.bfloat16).requires_grad_(False)
+        H = cfg["image_size"]
+        state = torch.randn(B, cfg["state_dim"], generator=g, device=dev).bfloat16()
+        prev = (torch.rand(B, H, H, 3, generator=g, device=dev) * 2 - 1).bfloat16()
+        params = fuse_fast_params(gen)
+        fast = lambda: fast_apply(gen, params, state, prev)  # noqa: E731
+        module = lambda: gen(state, prev)  # noqa: E731
+    calls = []
+    kernel = fi.hidden_maps
+
+    def spy(h, bias, widths, terms=None):
+        calls.append(dict(shape=tuple(h.shape), widths=tuple(widths), terms=None if terms is None
+                          else dict(stride=terms.stride(), offset=terms.storage_offset())))
+        return kernel(h, bias, widths, terms)
+
+    with torch.no_grad():
+        fast()  # builds the kernel and warms every shape
+        torch.cuda.synchronize()
+        ck.hidden_maps.launches = ck.hidden_maps.cmap_launches = 0
+        fi.hidden_maps = spy
+        try:
+            fast()
+        finally:
+            fi.hidden_maps = kernel
+        torch.cuda.synchronize()
+        counts = (ck.hidden_maps.launches, ck.hidden_maps.cmap_launches)
+        ck.hidden_maps.launches = 0
+        module()
+        torch.cuda.synchronize()
+        module_launches = ck.hidden_maps.launches
+    del gen, params
+    torch.cuda.empty_cache()
+    return calls, counts, module_launches
+
+
+def hidden_map_inputs(call: dict, dtype, seed: int) -> tuple:
+    """Seeded operands of a recorded call's shapes on the card: h in
+    channels_last memory, the bias, and the terms as the same strided slice
+    of a wider tensor as the fast path passes (``t_all[:, :, off:off + C]``)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, C, H, W = call["shape"]
+    h = torch.randn(B, H, W, C, generator=g, device="cuda").to(dtype).permute(0, 3, 1, 2)
+    bias = (torch.randn(C, generator=g, device="cuda") * 0.5).to(dtype)
+    terms = None
+    if call["terms"] is not None:
+        total = call["terms"]["stride"][1]  # t_all [B, 9, total] is contiguous
+        t_all = torch.randn(B, 9, total, generator=g, device="cuda").to(dtype)
+        off = call["terms"]["offset"] % total
+        terms = t_all[:, :, off:off + C]
+        if terms.stride() != call["terms"]["stride"]:
+            fail(f"hidden_maps: rebuilt terms strides {terms.stride()} != {call['terms']}")
+    return h, bias, terms
+
+
+def parent_glue(h, bias, widths, terms):
+    """What the fast path ran before the kernel, after the bias-free conv:
+    the bias (and for S2P the constant-map terms: a broadcast add and 8
+    border updates) in place, the ReLU, the split and each norm's copy into
+    a channels_last map (``_modulate``'s ``_cl``); the yardstick."""
+    import torch
+
+    from s2p_tpu_torch.gan.fast_inference import _add_const_map, _cl
+
+    if terms is None:
+        h = h + bias[None, :, None, None]
+    else:
+        _add_const_map(h, terms, bias)
+    return [_cl(m) for m in torch.split(h.relu_(), list(widths), dim=1)]
+
+
+def phase_hidden_maps(ck, card: str) -> dict:
+    """``hidden_maps`` on the three cells' main paths: its launches over one
+    fast-path pass (5 with the constant-map terms for each S2P cell, 7
+    without for GauGAN) and over one module-path pass (0); the kernel
+    against ``hidden_maps_plain`` at every block shape of those passes in
+    bf16 and f32; its device time beside its bound (read h, write the maps
+    at the HBM rate), the plain version's and the glue's it replaced."""
+    import torch
+
+    t0 = time.time()
+    ck.load_hidden_maps_library()
+    print(f"build: hidden_maps ({ck.HIDDEN_SOURCE.name}) built and loaded in "
+          f"{time.time() - t0:.1f} s")
+    expected = {SPADE_CELL: (7, 0)}
+    max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    per_cell = {}
+    for cell in HIDDEN_CELLS:
+        calls, counts, module_launches = hidden_map_calls(ck, cell)
+        want = expected.get(cell, (5, 5))
+        print(f"hidden_maps {cell}: {counts[0]} launches a fast-path pass ({counts[1]} with the "
+              f"constant-map terms; expected {want[0]} and {want[1]}), {module_launches} on the "
+              f"module path; {card}")
+        if counts != want or len(calls) != want[0]:
+            fail(f"hidden_maps on {cell}: {counts} launches a pass and {len(calls)} calls, "
+                 f"expected {want}")
+        if module_launches:
+            fail(f"hidden_maps on {cell}'s module path: {module_launches} launches, expected 0")
+        totals = dict(ms=0.0, bound_ms=0.0, plain_ms=0.0, glue_ms=0.0)
+        for i, call in enumerate(calls):
+            for dtype in (torch.bfloat16, torch.float32):
+                h, bias, terms = hidden_map_inputs(call, dtype, seed=i)
+                with torch.no_grad():
+                    out = ck.hidden_maps(h, bias, call["widths"], terms)
+                    ref = ck.hidden_maps_plain(h, bias, call["widths"], terms)
+                torch.cuda.synchronize()
+                tol = HIDDEN_F32_TOL if dtype == torch.float32 else BF16_TOL
+                for o, r in zip(out, ref):
+                    if not o.is_contiguous(memory_format=torch.channels_last):
+                        fail(f"hidden_maps: a map of {call} is not channels_last-contiguous")
+                    err = (o.float() - r.float()).abs()
+                    max_err[dtype] = max(max_err[dtype], err.max().item())
+                    if (err > tol + tol * r.float().abs()).any():
+                        fail(f"hidden_maps vs plain at {cell} {call['shape']} {dtype}: max "
+                             f"|err| {err.max().item():.3g}")
+                if dtype != torch.bfloat16:
+                    continue
+                bits = h.data_ptr() | bias.data_ptr() | out[0].data_ptr()
+                if terms is not None:
+                    bits |= terms.data_ptr() | (terms.stride(0) * 2) | (terms.stride(1) * 2)
+                B, C, H, W = call["shape"]
+                plan = ck.hidden_maps_plan(B, H * W, call["widths"], dtype, bits % 16 == 0,
+                                           ck._sm_count(0))
+                if not plan.vec:
+                    fail(f"hidden_maps: {cell} {call['shape']} fell to the scalar path")
+                with torch.no_grad():
+                    ms = device_ms(lambda: ck.hidden_maps(h, bias, call["widths"], terms))
+                    plain = device_ms(lambda: ck.hidden_maps_plain(h, bias, call["widths"], terms),
+                                      iters=5)
+                    glue = device_ms(lambda: parent_glue(h, bias, call["widths"], terms), iters=5)
+                bound = 2 * B * C * H * W * h.element_size() / HBM_BYTES_PER_S * 1e3
+                print(f"hidden_maps bf16 {cell} {call['shape']} widths {call['widths']} "
+                      f"{'terms' if terms is not None else 'no terms'}: {ms:.4f} ms (bound "
+                      f"{bound:.4f}, {100 * bound / ms:.1f}%), plain {plain:.4f} ms, the glue it "
+                      f"replaced {glue:.4f} ms; plan lanes {plan.lanes} threads {plan.threads} "
+                      f"grid {plan.grid}x{plan.c_tiles}x{B}")
+                for k, v in (("ms", ms), ("bound_ms", bound), ("plain_ms", plain),
+                             ("glue_ms", glue)):
+                    totals[k] += v
+                del h, bias, terms, out, ref
+        totals["roofline_pct"] = 100 * totals["bound_ms"] / totals["ms"]
+        per_cell[cell] = dict(totals, launches=counts[0], cmap_launches=counts[1],
+                              module_launches=module_launches)
+        print(f"hidden_maps {cell}, one pass in bf16 ({counts[0]} launches): {totals['ms']:.4f} "
+              f"ms against a bound of {totals['bound_ms']:.4f} ms "
+              f"({totals['roofline_pct']:.1f}%), plain {totals['plain_ms']:.4f} ms, the glue it "
+              f"replaced {totals['glue_ms']:.4f} ms; {card}")
+        torch.cuda.empty_cache()
+    print(f"hidden_maps vs plain: max |err| f32 {max_err[torch.float32]:.3g}, bf16 "
+          f"{max_err[torch.bfloat16]:.3g} (tolerance f32 rtol=atol {HIDDEN_F32_TOL}, bf16 "
+          f"rtol=atol {BF16_TOL})")
+    return dict(per_cell=per_cell, max_err={str(k).split(".")[-1]: v
+                                            for k, v in max_err.items()})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -4101,6 +4299,9 @@ def main() -> None:
                     help="only run phase 26 (the SPADE-norm kernel at the 18 shapes of a "
                          "GauGAN pass, then GauGAN's fast path against its module path), "
                          "and stop")
+    ap.add_argument("--hidden", action="store_true",
+                    help="only run phase 27 (the hidden-map kernel on the three cells' main "
+                         "paths), and stop")
     ap.add_argument("--time-paths", default=None, metavar="ROOT",
                     help="only time the two main paths end to end with the s2p_tpu_torch "
                          "of the checkout in ROOT and print them as JSON (one side of --ab)")
@@ -4133,6 +4334,9 @@ def main() -> None:
     if args.spade:
         print(json.dumps(dict(kernel=phase_spade_norm(ck, card),
                               path=phase_spade_path(ck, card))))
+        return
+    if args.hidden:
+        print(json.dumps(phase_hidden_maps(ck, card)))
         return
     if args.ab:
         phase_ab(ck, args.ab, card)
@@ -4257,6 +4461,11 @@ def main() -> None:
     spade_path = phase_spade_path(ck, card)
     print(f"phase 26: {time.time() - t0:.1f} s")
 
+    # phase 27: the hidden-map kernel on the three cells' main paths
+    t0 = time.time()
+    hidden = phase_hidden_maps(ck, card)
+    print(f"phase 27: {time.time() - t0:.1f} s")
+
     by_path = dict(serving=serving["launches"], training=training["fwd"], bridge=bridge,
                    gb_int8=gb_int8, slac_pretrain=pretrain["launches"], slac_iql=iql["launches"],
                    cql_slac=cql["launches"], eval_metrics=evals["launches"],
@@ -4332,7 +4541,20 @@ def main() -> None:
             "synthesize_fast pass at batch 32 (events, host included); path_gaps: its "
             "frames against the module path in f32",
     )
-    print(json.dumps({"kernels": [fwd_record, bwd_record, spade_record]}))
+    hidden_record = dict(
+        name="hidden_maps", route="cuda", source="s2p_tpu_torch/csrc/hidden_maps.cu",
+        replaces=None, launches=sum(c["launches"] for c in hidden["per_cell"].values()),
+        launches_by_path={cell: c["launches"] for cell, c in hidden["per_cell"].items()},
+        max_abs_err=hidden["max_err"]["float32"], max_abs_err_bf16=hidden["max_err"]["bfloat16"],
+        per_cell=hidden["per_cell"], bound_by="bytes", library_ms=None,
+        per="per_cell: one fast-path pass of each cell's generator at its batch in bf16 (S2P: "
+            "5 launches with the constant-map terms; GauGAN: 7 without); ms, plain_ms, "
+            "glue_ms: device time (CUDA graph replay) of the kernel, its plain version and "
+            "the op sequence it replaced (bias and constant-map adds, ReLU, split, copies); "
+            "bound: read h and write the maps once at the HBM rate; the JAX package has no "
+            "such kernel (XLA fuses the arithmetic; replaces None)",
+    )
+    print(json.dumps({"kernels": [fwd_record, bwd_record, spade_record, hidden_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -56,11 +56,21 @@ output is bit for bit the formula's without the bias; with it there is no
 gradient (it raises where autograd would record). ``bias_launches`` counts
 the launches that took one, beside ``launches``.
 
+``hidden_maps`` writes a res-block's hidden maps from the bias-free output
+of the fast path's shared conv, from ``s2p_tpu_torch/csrc/hidden_maps.cu``:
+in one pass it adds the conv's bias and, for S2P, the constant-map conv's
+border-aware terms, applies the ReLU, and writes each norm's map
+channels_last-contiguous into one allocation; it replaces no TPU kernel
+(XLA fuses the same arithmetic there). Bound by bytes (read the map once,
+write it once), with no gradient; ``hidden_maps_plan`` sets its launch,
+``hidden_maps_plain`` is its plain version, and ``cmap_launches`` counts
+the launches with the constant-map terms beside ``launches``.
+
 Each kernel source is compiled by ``nvcc`` for ``sm_90a`` at its first use
 into ``build/s2p_tpu_torch/`` beside the package, named by the hash of its
 source, the headers beside it and the flags so that an edited source is
 rebuilt, and loaded with ``ctypes``: a program that never calls
-``spade_norm`` never builds it.
+``spade_norm`` (or ``hidden_maps``) never builds it.
 """
 
 from __future__ import annotations
@@ -80,6 +90,7 @@ from torch.autograd.function import once_differentiable
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "fused_mat_norm.cu"
 SPADE_SOURCE = _PKG / "csrc" / "spade_norm.cu"
+HIDDEN_SOURCE = _PKG / "csrc" / "hidden_maps.cu"
 BUILD_DIR = _PKG.parent / "build" / "s2p_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -613,3 +624,170 @@ def spade_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 spade_norm.launches = spade_norm.bias_launches = 0
+
+
+# -- a res-block's hidden maps ------------------------------------------------
+
+HIDDEN_THREADS = 256  # the most threads a block takes (kMaxThreads in hidden_maps.cu)
+HIDDEN_UNROLL = 4  # pixels a thread loads before it stores (kUnroll)
+HIDDEN_BLOCKS_PER_SM = 8  # a grid of this many blocks an SM at most (2,048 threads)
+HIDDEN_MAX_NORMS = 4  # kMaxNorms
+CMAP_ROWS = 9  # the constant-map terms: full, top, bottom, left, right, corners 00, 02, 20, 22
+
+
+@functools.cache
+def load_hidden_maps_library() -> ctypes.CDLL:
+    """Build (if needed) and load the hidden-map library."""
+    lib = ctypes.CDLL(str(build(HIDDEN_SOURCE)))
+    fn = lib.s2p_hidden_maps
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@dataclass(frozen=True)
+class HiddenMapsPlan:
+    """How one hidden-map launch covers its tensors (see ``hidden_maps.cu``)."""
+    vec: bool  # 16-byte loads and stores
+    lanes: int  # threads that cover one pixel's channel tile
+    threads: int  # threads of a block: whole rows of ``lanes``
+    c_tiles: int  # channel tiles (the grid's y; the images are its z)
+    grid: int  # blocks over one image's pixels (the grid's x)
+
+
+@functools.cache
+def hidden_maps_plan(batch: int, hw: int, widths: tuple, dtype: torch.dtype, vec_ok: bool,
+                     sms: int) -> HiddenMapsPlan:
+    """The launch plan of one ``hidden_maps`` call over ``batch`` images of
+    ``hw`` pixels and the norms' ``widths``: the vector path when every
+    width is a multiple of a 16-byte vector and ``vec_ok`` (every base
+    pointer and stride 16-byte aligned); a channel tile of at most
+    ``HIDDEN_THREADS`` threads; as many rows of tiles as fit in a block; and
+    blocks enough for an image's pixels at ``HIDDEN_UNROLL`` a thread, at
+    most ``HIDDEN_BLOCKS_PER_SM`` an SM over the images and tiles (the
+    kernel loops over the rest)."""
+    width = 16 // dtype.itemsize
+    vec = vec_ok and all(w % width == 0 for w in widths)
+    vectors = sum(widths) // width if vec else sum(widths)
+    lanes = min(vectors, HIDDEN_THREADS)
+    threads = lanes * (HIDDEN_THREADS // lanes)
+    c_tiles = -(-vectors // lanes)
+    rows = threads // lanes
+    cap = max(1, HIDDEN_BLOCKS_PER_SM * sms // (c_tiles * batch))
+    grid = max(1, min(-(-hw // (rows * HIDDEN_UNROLL)), cap))
+    return HiddenMapsPlan(vec=vec, lanes=lanes, threads=threads, c_tiles=c_tiles, grid=grid)
+
+
+def _hidden_outputs(h: torch.Tensor, widths: tuple) -> tuple:
+    """One allocation for the norms' maps and each map in it: norm k's
+    ``[B, F_k, H, W]`` channels_last-contiguous at B·H·W·(F_0 + … + F_{k−1})."""
+    B, _, H, W = h.shape
+    n = B * H * W
+    buf = torch.empty(n * sum(widths), dtype=h.dtype, device=h.device)
+    maps, off = [], 0
+    for w in widths:
+        maps.append(buf[off:off + n * w].view(B, H, W, w).permute(0, 3, 1, 2))
+        off += n * w
+    return buf, maps
+
+
+def hidden_maps_plain(h: torch.Tensor, bias: torch.Tensor, widths, terms=None) -> list:
+    """What ``hidden_maps`` computes, in float32 (float64 for float64
+    inputs) with one rounding to h's type: ``h + (bias + full)``, each
+    border row and column less its term and each corner plus its own, in
+    that order (every term that applies, as ``_add_const_map`` applies them
+    in place), ReLU, split by ``widths`` into channels_last-contiguous maps
+    of one allocation."""
+    t = None if terms is None else _acc(terms)
+    base = _acc(bias)[None] if t is None else _acc(bias) + t[:, 0]
+    v = _acc(h) + base[:, :, None, None]
+    if t is not None:
+        v[:, :, 0] -= t[:, 1, :, None]
+        v[:, :, -1] -= t[:, 2, :, None]
+        v[:, :, :, 0] -= t[:, 3, :, None]
+        v[:, :, :, -1] -= t[:, 4, :, None]
+        v[:, :, 0, 0] += t[:, 5]
+        v[:, :, 0, -1] += t[:, 6]
+        v[:, :, -1, 0] += t[:, 7]
+        v[:, :, -1, -1] += t[:, 8]
+    v = torch.relu(v).to(h.dtype)
+    _, maps = _hidden_outputs(h, tuple(widths))
+    for m, part in zip(maps, torch.split(v, list(widths), dim=1)):
+        m.copy_(part)
+    return maps
+
+
+def _check_hidden(h, bias, widths, terms) -> None:
+    """Raise ``ValueError`` unless the operands are what ``hidden_maps``
+    takes (the layout of h is the card's to check)."""
+    if h.dim() != 4 or h.dtype not in _DTYPES:
+        raise ValueError(f"hidden_maps: h must be 4-D float32/bfloat16 [B, C, H, W], got "
+                         f"{h.dtype} {tuple(h.shape)}")
+    B, C = h.shape[:2]
+    if not 0 < len(widths) <= HIDDEN_MAX_NORMS or min(widths) <= 0 or sum(widths) != C:
+        raise ValueError(f"hidden_maps: widths {widths} must be 1 to {HIDDEN_MAX_NORMS} "
+                         f"positive widths summing to h's {C} channels")
+    if (bias.shape != (C,) or bias.dtype != h.dtype or bias.device != h.device
+            or not bias.is_contiguous()):
+        raise ValueError(f"hidden_maps: bias must be contiguous {h.dtype} ({C},) on {h.device}, "
+                         f"got {bias.dtype} {tuple(bias.shape)} on {bias.device}")
+    if terms is not None and (terms.shape != (B, CMAP_ROWS, C) or terms.dtype != h.dtype
+                              or terms.device != h.device or (C > 1 and terms.stride(2) != 1)):
+        raise ValueError(f"hidden_maps: terms must be {h.dtype} ({B}, {CMAP_ROWS}, {C}) on "
+                         f"{h.device} with a unit channel stride, got {terms.dtype} "
+                         f"{tuple(terms.shape)} strides {terms.stride()} on {terms.device}")
+
+
+def _launch_hidden_maps(h, bias, widths, terms):
+    if not h.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"hidden_maps: h must be channels_last-contiguous, got strides "
+                         f"{h.stride()}")
+    B, C, H, W = h.shape
+    if B > 65535:
+        raise ValueError(f"hidden_maps: at most 65,535 images a launch, got {B}")
+    buf, maps = _hidden_outputs(h, widths)
+    if buf.numel() == 0:
+        return maps
+    t_b = t_r = 0
+    bits = h.data_ptr() | bias.data_ptr() | buf.data_ptr()
+    if terms is not None:
+        t_b, t_r = terms.stride(0), terms.stride(1)
+        bits |= terms.data_ptr() | t_b * h.element_size() | t_r * h.element_size()
+    plan = hidden_maps_plan(B, H * W, widths, h.dtype, bits % 16 == 0, _sm_count(h.device.index))
+    err = _on_stream(h, load_hidden_maps_library().s2p_hidden_maps,
+                     h.data_ptr(), bias.data_ptr(), None if terms is None else terms.data_ptr(),
+                     buf.data_ptr(), B, H, W, C, t_b, t_r,
+                     *widths, *(0,) * (HIDDEN_MAX_NORMS - len(widths)), len(widths),
+                     _DTYPES[h.dtype], int(plan.vec), plan.lanes, plan.threads, plan.grid,
+                     plan.c_tiles)
+    if err != 0:
+        raise RuntimeError(f"hidden_maps: kernel launch failed with cudaError {err}")
+    hidden_maps.launches += 1
+    hidden_maps.cmap_launches += terms is not None
+    return maps
+
+
+def hidden_maps(h: torch.Tensor, bias: torch.Tensor, widths, terms=None) -> list:
+    """A res-block's hidden maps from its shared conv's bias-free output
+    ``h`` ``[B, ΣF, H, W]`` (float32 or bfloat16; on the card in
+    channels_last memory): ``relu(h + bias [+ the constant-map terms])``
+    split by ``widths`` into one ``[B, F_k, H, W]`` map a norm, each
+    channels_last-contiguous, all in one allocation. ``terms`` ``[B, 9,
+    ΣF]`` (unit channel stride; any batch and row strides) are S2P's
+    constant-map terms (``fast_inference._add_const_map``'s rows). On the
+    card: the CUDA kernel, for inference only (it raises where autograd
+    would record). On the CPU: the plain version."""
+    widths = tuple(int(w) for w in widths)
+    _check_hidden(h, bias, widths, terms)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (h, bias, terms)):
+        raise RuntimeError("hidden_maps has no backward: call it under torch.no_grad()")
+    if h.device.type == "cpu":
+        return hidden_maps_plain(h, bias, widths, terms)
+    if h.device.type != "cuda":
+        raise ValueError(f"hidden_maps: unsupported device {h.device}")
+    return _launch_hidden_maps(h, bias, widths, terms)
+
+
+hidden_maps.launches = hidden_maps.cmap_launches = 0

@@ -17,11 +17,13 @@ Tensors here are NCHW in channels_last memory, as in ``generator.py``. The
 fast path runs an ``S2PGenerator``'s own layers, except that each MAT norm
 reads operands that ``fuse_fast_params`` precomputes from the same weights.
 A block's 2–3 norms condition on the same input, so their hidden maps come
-from ONE wide shared conv, split per norm (``_hidden_maps``), with the
-state half of every norm's terms reduced in ONE matmul per step. The
-modulated instance norm runs through the fused CUDA kernel on the card.
-The spans are the module path's (``s2p.gen.*``, ``s2p.mat.*``), plus
-``s2p.fast.cmap`` around each constant-map assembly and ``s2p.fast.fuse``
+from ONE wide shared conv, with the state half of every norm's terms
+reduced in ONE matmul per step; one hand-written kernel then adds the
+conv's bias and the border-aware constant-map terms, applies the ReLU and
+writes each norm's map (``_hidden_maps``). The modulated instance norm
+runs through the fused CUDA kernel on the card. The spans are the module
+path's (``s2p.gen.*``, ``s2p.mat.*``), plus ``s2p.fast.cmap`` around each
+block's hidden-map kernel with the constant-map terms and ``s2p.fast.fuse``
 around the fusion of the operands.
 
 ``gb_int8`` (opt-in) runs each γ‖β conv on int8 operands: per-output-channel
@@ -48,6 +50,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from s2p_tpu_torch.gan.cuda_kernels import hidden_maps
 from s2p_tpu_torch.gan.generator import (CL, S2PGenerator, SPADEGenerator, label_onehot,
                                          mat_norm_nchw, spade_norm_nchw, upsample_nearest)
 from s2p_tpu_torch.gan.rollout import generate_rollout
@@ -87,20 +90,20 @@ def _add_const_map(h: torch.Tensor, t: torch.Tensor,
     and each corner gets back the tap it lost twice. The borders are
     updated through integer slices, so only border pixels are touched (the
     JAX package builds 0/1 masks that XLA fuses into one pass; in eager
-    PyTorch each mask product would be a pass over the whole map)."""
-    with annotate("s2p.fast.cmap"):
-        full, top, bot, left, right, c00, c02, c20, c22 = t.unbind(1)  # each [B, F]
-        if bias is not None:
-            full = full + bias
-        h += full[:, :, None, None]
-        h[:, :, 0] -= top[:, :, None]
-        h[:, :, -1] -= bot[:, :, None]
-        h[:, :, :, 0] -= left[:, :, None]
-        h[:, :, :, -1] -= right[:, :, None]
-        h[:, :, 0, 0] += c00
-        h[:, :, 0, -1] += c02
-        h[:, :, -1, 0] += c20
-        h[:, :, -1, -1] += c22
+    PyTorch each mask product would be a pass over the whole map). The fast
+    path does the same in one kernel pass (``cuda_kernels.hidden_maps``)."""
+    full, top, bot, left, right, c00, c02, c20, c22 = t.unbind(1)  # each [B, F]
+    if bias is not None:
+        full = full + bias
+    h += full[:, :, None, None]
+    h[:, :, 0] -= top[:, :, None]
+    h[:, :, -1] -= bot[:, :, None]
+    h[:, :, :, 0] -= left[:, :, None]
+    h[:, :, :, -1] -= right[:, :, None]
+    h[:, :, 0, 0] += c00
+    h[:, :, 0, -1] += c02
+    h[:, :, -1, 0] += c20
+    h[:, :, -1, -1] += c22
     return h
 
 
@@ -272,18 +275,21 @@ def _modulate(x: torch.Tensor, h: torch.Tensor, p: Params, gb_int8: bool = False
 def _hidden_maps(cond: torch.Tensor, p: Params,
                  state_terms: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """A block's hidden maps, one per norm, in one pass: ONE conv over the
-    condition ``cond`` (S2P's image feature, SPADE's one-hot label map);
-    for S2P the constant-map terms ``state_terms`` ``[B, 9, ΣF]`` of the
-    state half added, the conv's bias folded into their full-map add; ReLU;
-    split per norm by the fused widths. The caller opens ``s2p.mat.hidden``
-    around it, so that SPADE's one-hot maps, made at their first use, count
-    there."""
+    condition ``cond`` (S2P's image feature, SPADE's one-hot label map),
+    without its bias; then ``cuda_kernels.hidden_maps`` adds the bias and,
+    for S2P, the constant-map terms ``state_terms`` ``[B, 9, ΣF]`` of the
+    state half, applies the ReLU and writes each norm's map, split by the
+    fused widths, channels_last-contiguous (one kernel launch on the card).
+    The caller opens ``s2p.mat.hidden`` around it, so that SPADE's one-hot
+    maps, made at their first use, count there."""
     sc = p["shared_cat"]
+    h = F.conv2d(cond, sc["weight"], None, padding=1)
     if state_terms is None:
-        h = F.conv2d(cond, sc["weight"], sc["bias"], padding=1)
+        maps = hidden_maps(h, sc["bias"], sc["widths"])
     else:
-        h = _add_const_map(F.conv2d(cond, sc["weight"], padding=1), state_terms, sc["bias"])
-    return dict(zip(p["norms"], torch.split(h.relu_(), sc["widths"], dim=1)))
+        with annotate("s2p.fast.cmap"):
+            maps = hidden_maps(h, sc["bias"], sc["widths"], state_terms)
+    return dict(zip(p["norms"], maps))
 
 
 def _res_block(x: torch.Tensor, block: torch.nn.Module, norm) -> torch.Tensor:
