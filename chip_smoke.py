@@ -314,6 +314,26 @@ TP world's batch of 2·world, f32, forward.
     slice of a wider tensor), with its device time beside its bytes-bound
     time (read h, write the maps), the plain version's and that of the glue
     it replaced, per shape and per pass.
+28. StyleGAN (a main path): the MAT-norm kernel as AdaIN against its plain
+    version at the 9 shapes of its 18 launches a pass (FFHQ 1024², batch
+    32, bf16 and f32, γ‖β one ``[B, 2C]`` style tensor broadcast over the
+    pixels at stride 0, ε 1e-8), every launch counted in ``style_launches``,
+    with its plan and device time beside its bytes-bound time (read x,
+    write out, 2·B·C style values) per shape and per pass; the
+    style-epilogue kernel against ``style_epilogue_plain`` at the same 9
+    shapes (bf16 and f32; noise, strength and bias N(0, 1), so that leaving
+    out the noise or the bias, or a wrong slope, fails the tolerance, which
+    is checked on the plain version), one launch counted each, its device
+    time beside its bytes-bound time (x read and written, the f32 noise),
+    the plain version's and the eager ops' it replaced; then
+    ``synthesize_style_fast`` at batch 32 in bf16 with the
+    ``stylegan-ffhq1024-b32`` cell's weights: a pass must launch the
+    MAT-norm kernel 18 times, all style launches, and the epilogue kernel
+    18 times (counts reset just before), its device time, and its frames
+    must hold to the module path in f32 (TF32 off, the same noise; 18 and
+    18 launches too) within the cell's limits; one pass of the S2P fast and
+    module paths must launch the MAT-norm kernel with no style launch and
+    the epilogue kernel not at all.
 
 ``--ab DIR`` runs phases 1 and 2, then times the norm kernels against
 those of the checkout in DIR in turns (without and with the γ‖β bias
@@ -322,7 +342,8 @@ folded), then the two main paths end to end
 its own (``--time-paths ROOT``), in turns, and stops. ``--sweep`` runs
 phases 1 and 2, then times every launch plan of the two kernels at each
 bf16 main-path shape, and stops. ``--spade`` runs phases 1, 2 and 26, and
-stops; ``--hidden`` runs phases 1, 2 and 27, and stops.
+stops; ``--hidden`` runs phases 1, 2 and 27, and stops; ``--stylegan`` runs
+phases 1, 2 and 28, and stops.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` also writes a
@@ -4098,6 +4119,287 @@ def phase_spade_path(ck, card: str) -> dict:
                 saturated_share=saturated)
 
 
+STYLEGAN_CELL = "stylegan-ffhq1024-b32"  # the benchmark cell whose shapes, weights and limits are used
+STYLEGAN_EPS = 1e-8  # instance_norm's epsilon in networks_stylegan.py
+
+
+def phase_style_adain(ck, card: str) -> dict:
+    """``fused_mat_norm`` as StyleGAN's AdaIN against ``fused_mat_norm_plain``
+    at every shape of a pass, with γ and β the two halves of one ``[B, 2C]``
+    style tensor broadcast over the pixels (pixel stride 0), ε 1e-8; each
+    launch must count in ``style_launches``; device time beside the bound
+    (read x, write out, the 2·B·C style values, at the HBM rate)."""
+    import torch
+    from portbench import harness
+    from portbench.counts import stylegan as style_counts
+
+    cell = harness.load_cell(STYLEGAN_CELL)
+    G, B = cell.config["G"], cell.traffic["batch"]
+    shapes = style_counts.norm_shapes(G)
+    if sum(shapes.values()) != 18:
+        fail(f"StyleGAN: {sum(shapes.values())} AdaIN layers a pass, not 18")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    per_pass, max_err = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        pass_ms = pass_bound = pass_plain = 0.0
+        max_err[name] = 0.0
+        for (r, c), n in sorted(shapes.items()):
+            x = (torch.randn(B, r, r, c, generator=g, device="cuda") * 2 + 0.5).to(dtype)
+            style = torch.randn(B, 2 * c, generator=g, device="cuda").to(dtype)
+            gamma = style[:, :c].view(B, 1, 1, c).expand(B, r, r, c)
+            beta = style[:, c:].view(B, 1, 1, c).expand(B, r, r, c)
+            before = ck.fused_mat_norm.launches, ck.fused_mat_norm.style_launches
+            with torch.no_grad():
+                out = ck.fused_mat_norm(x, gamma, beta, eps=STYLEGAN_EPS)
+                ref = ck.fused_mat_norm_plain(x, gamma, beta, eps=STYLEGAN_EPS)
+            torch.cuda.synchronize()
+            counted = (ck.fused_mat_norm.launches - before[0],
+                       ck.fused_mat_norm.style_launches - before[1])
+            if counted != (1, 1):
+                fail(f"fused_mat_norm at {(B, r, r, c)} with styles counted {counted} "
+                     "(launches, style_launches), not (1, 1)")
+            err = (out.float() - ref.float()).abs()
+            tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+            max_err[name] = max(max_err[name], err.max().item())
+            if not torch.isfinite(out).all() or (err > tol + tol * ref.float().abs()).any():
+                fail(f"fused_mat_norm as AdaIN vs plain at {name} {(B, r, r, c)}: max |err| "
+                     f"{err.max().item():.3g}")
+            del ref
+            plan = ck.forward_plan(x, gamma, beta)
+            with torch.no_grad():
+                ms = device_ms(lambda: ck.fused_mat_norm(x, gamma, beta, eps=STYLEGAN_EPS))
+                plain = time_ms(lambda: ck.fused_mat_norm_plain(x, gamma, beta,
+                                                                eps=STYLEGAN_EPS),
+                                iters=2, warmup=1)
+            elems = B * r * r * c
+            bound = 1e3 * max(style_counts.launch_bytes(B, r, c, x.element_size())
+                              / HBM_BYTES_PER_S, 9 * elems / 67e12)
+            print(f"fused_mat_norm AdaIN {name} {(B, r, r, c)} x{n}/pass: {ms:.4f} ms (bound "
+                  f"{bound:.4f}, {100 * bound / ms:.1f}%), plain {plain:.4f} ms (events); "
+                  f"{plan_label(plan)}; max |err| {err.max().item():.3g}")
+            pass_ms += n * ms
+            pass_bound += n * bound
+            pass_plain += n * plain
+            del x, out, err
+            torch.cuda.empty_cache()
+        per_pass[name] = dict(ms=pass_ms, bound_ms=pass_bound, plain_ms=pass_plain,
+                              roofline_pct=100 * pass_bound / pass_ms)
+        print(f"fused_mat_norm AdaIN {name}, one StyleGAN pass at batch {B} (18 launches): "
+              f"{pass_ms:.4f} ms against a bound of {pass_bound:.4f} ms "
+              f"({100 * pass_bound / pass_ms:.1f}%), plain {pass_plain:.4f} ms")
+    print(f"fused_mat_norm as AdaIN vs plain: max |err| f32 {max_err['float32']:.3g}, bf16 "
+          f"{max_err['bfloat16']:.3g} (tolerance f32 rtol=atol {F32_TOL}, bf16 rtol=atol "
+          f"{BF16_TOL}); {card}")
+    return dict(per_pass=per_pass, max_err=max_err)
+
+
+def phase_style_epilogue(ck, card: str) -> dict:
+    """``style_epilogue`` against ``style_epilogue_plain`` at every (r, C)
+    of a StyleGAN pass at the cell's batch, in bf16 and f32: x N(0, 2²),
+    noise, strength and bias N(0, 1), so that the plain version without the
+    noise, without the bias, with slope 0 or with slope 1 must each break
+    the tolerance somewhere (checked here, so the comparison can catch
+    them); each call one launch; device time beside the bound (x read and
+    written, the noise read, at the HBM rate), the plain version's time and
+    that of the eager ops it replaced (``addcmul_``, ``add_``,
+    ``leaky_relu_`` over the NCHW view)."""
+    import torch
+    import torch.nn.functional as F
+    from portbench import harness
+    from portbench.counts import stylegan as style_counts
+    from s2p_tpu_torch.gan.stylegan import LRELU
+
+    cell = harness.load_cell(STYLEGAN_CELL)
+    G, B = cell.config["G"], cell.traffic["batch"]
+    shapes = style_counts.norm_shapes(G)  # one epilogue a layer, at its AdaIN's shape
+    g = torch.Generator(device="cuda").manual_seed(1)
+    per_pass, max_err = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        totals = dict(ms=0.0, bound_ms=0.0, plain_ms=0.0, eager_ms=0.0)
+        max_err[name] = 0.0
+        for (r, c), n in sorted(shapes.items()):
+            x = (torch.randn(B, r, r, c, generator=g, device="cuda") * 2).to(dtype)
+            noise = torch.randn(B, r, r, generator=g, device="cuda")
+            strength, bias = (torch.randn(c, generator=g, device="cuda").to(dtype)
+                              for _ in range(2))
+            args = lambda x, s=strength, b=bias, slope=LRELU: (x, noise, s, b, slope)  # noqa: E731
+            ref = ck.style_epilogue_plain(*args(x)).float()
+            off = lambda y: ((y.float() - ref).abs() > tol + tol * ref.abs()).any().item()  # noqa: E731
+            zero = torch.zeros_like(bias)
+            for what, y in (("no noise", ck.style_epilogue_plain(*args(x, s=zero))),
+                            ("no bias", ck.style_epilogue_plain(*args(x, b=zero))),
+                            ("slope 0", ck.style_epilogue_plain(*args(x, slope=0.0))),
+                            ("slope 1", ck.style_epilogue_plain(*args(x, slope=1.0)))):
+                if not off(y):
+                    fail(f"style_epilogue check at {name} {(B, r, r, c)}: the plain version "
+                         f"with {what} passes the tolerance, so the comparison cannot catch it")
+                del y
+            before = ck.style_epilogue.launches
+            with torch.no_grad():
+                out = ck.style_epilogue(*args(x.clone()))
+            torch.cuda.synchronize()
+            if ck.style_epilogue.launches - before != 1:
+                fail(f"style_epilogue at {(B, r, r, c)} counted "
+                     f"{ck.style_epilogue.launches - before} launches, not 1")
+            err = (out.float() - ref).abs()
+            max_err[name] = max(max_err[name], err.max().item())
+            if not torch.isfinite(out).all() or off(out):
+                fail(f"style_epilogue vs plain at {name} {(B, r, r, c)}: max |err| "
+                     f"{err.max().item():.3g}")
+            del out, err, ref
+            vec, grid = ck.style_epilogue_plan(x.numel(), c, dtype, True, ck._sm_count(0))
+            xn, n4 = x.permute(0, 3, 1, 2), noise[:, None]
+
+            def eager():
+                xn.addcmul_(n4.to(dtype), strength.view(1, -1, 1, 1))
+                F.leaky_relu_(xn.add_(bias.view(1, -1, 1, 1)), LRELU)
+
+            with torch.no_grad():
+                ms = device_ms(lambda: ck.style_epilogue(*args(x)))
+                plain = time_ms(lambda: ck.style_epilogue_plain(*args(x)), iters=2, warmup=1)
+                eager_ms = time_ms(eager, iters=3, warmup=1)
+            bound = 1e3 * max(style_counts.epilogue_bytes(B, r, c, x.element_size())
+                              / HBM_BYTES_PER_S,
+                              style_counts.EPILOGUE_FLOPS_PER_ELEMENT * x.numel() / 67e12)
+            print(f"style_epilogue {name} {(B, r, r, c)} x{n}/pass: {ms:.4f} ms (bound "
+                  f"{bound:.4f}, {100 * bound / ms:.1f}%), plain {plain:.4f} ms, eager ops "
+                  f"{eager_ms:.4f} ms (events); {'vec16' if vec else 'scalar'} grid={grid}")
+            for k, v in (("ms", ms), ("bound_ms", bound), ("plain_ms", plain),
+                         ("eager_ms", eager_ms)):
+                totals[k] += n * v
+            del x, xn, noise
+            torch.cuda.empty_cache()
+        per_pass[name] = dict(totals, roofline_pct=100 * totals["bound_ms"] / totals["ms"])
+        print(f"style_epilogue {name}, one StyleGAN pass at batch {B} (18 launches): "
+              f"{totals['ms']:.4f} ms against a bound of {totals['bound_ms']:.4f} ms "
+              f"({per_pass[name]['roofline_pct']:.1f}%), plain {totals['plain_ms']:.4f} ms, "
+              f"eager ops {totals['eager_ms']:.4f} ms")
+    print(f"style_epilogue vs plain: max |err| f32 {max_err['float32']:.3g}, bf16 "
+          f"{max_err['bfloat16']:.3g} (tolerance f32 rtol=atol {F32_TOL}, bf16 rtol=atol "
+          f"{BF16_TOL}); {card}")
+    return dict(per_pass=per_pass, max_err=max_err)
+
+
+def phase_style_path(ck, card: str) -> dict:
+    """StyleGAN's main path, ``synthesize_style_fast``, at the
+    ``stylegan-ffhq1024-b32`` cell's shapes and weights (FFHQ 1024², batch
+    32, bf16): 18 MAT-norm launches a pass, all style launches (counted
+    from 0 just before it), its time, its peak memory, and its frames
+    against the module path in f32 with TF32 off and the same noise, held to
+    the cell's limits (gaps ÷ the module frames' range); then one pass of
+    the S2P fast and module paths (the cheetah cell's generator at batch 8)
+    must launch the kernel with no style launch."""
+    import torch
+    from portbench import harness, program
+    from s2p_tpu_torch.gan import (S2PGenerator, fast_apply, fuse_fast_params,
+                                   synthesize_style_fast)
+
+    cell = harness.load_cell(STYLEGAN_CELL)
+    ctx = harness.Ctx(cell, 0, torch.device("cuda"))
+    drv, G, tr = cell.driver, cell.config["G"], cell.traffic
+    weights = drv.seeded_weights(ctx)
+    gen = drv.build_generator(G, weights, ctx.device, torch.bfloat16)
+    params = fuse_fast_params(gen)
+    z = torch.randn(tr["batch"], G["latent_size"], generator=ctx.generator("traffic"),
+                    device=ctx.device)
+    noise_gen = torch.Generator(device="cuda")
+    run = lambda: synthesize_style_fast(gen, z, noise_gen.manual_seed(7), params)  # noqa: E731
+    with torch.no_grad():
+        run()  # warms every shape
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ck.fused_mat_norm.launches = ck.fused_mat_norm.style_launches = 0
+        ck.style_epilogue.launches = 0
+        frames = run()
+        torch.cuda.synchronize()
+        launches, style = ck.fused_mat_norm.launches, ck.fused_mat_norm.style_launches
+        epilogues = ck.style_epilogue.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if (launches, style, epilogues) != (18, 18, 18):
+            fail(f"synthesize_style_fast: {launches} fused_mat_norm launches a pass, {style} "
+                 f"with styles at pixel stride 0, {epilogues} style_epilogue launches; not 18, "
+                 "18 and 18")
+        ms = time_ms(run, iters=10)
+        tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        gen32 = drv.build_generator(G, weights, ctx.device, torch.float32)
+        ck.fused_mat_norm.launches = ck.fused_mat_norm.style_launches = 0
+        ck.style_epilogue.launches = 0
+        module = gen32(z, noise_gen.manual_seed(7)).float()
+        torch.cuda.synchronize()
+        module_launches = (ck.fused_mat_norm.launches, ck.fused_mat_norm.style_launches,
+                           ck.style_epilogue.launches)
+        if module_launches != (18, 18, 18):
+            fail(f"the module path launched fused_mat_norm {module_launches[0]} times, "
+                 f"{module_launches[1]} with styles, style_epilogue {module_launches[2]} "
+                 "times; not 18, 18 and 18")
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del gen32, params, gen
+    err = frames.float() - module
+    span = (module.max() - module.min()).item()
+    gaps = dict(frame_max_gap=err.abs().max().item() / span,
+                frame_rms_gap=err.square().mean().sqrt().item() / span)
+    del err, module
+    torch.cuda.empty_cache()
+    print(f"StyleGAN synthesize_style_fast, batch {len(z)} at {G['resolution']}² bf16: "
+          f"{launches} fused_mat_norm launches a pass ({style} with styles at pixel stride 0), "
+          f"{epilogues} style_epilogue launches; "
+          f"{ms:.3f} ms a pass ({1e3 * len(z) / ms:.1f} frames/s, events, host included); peak "
+          f"{peak_gb:.2f} GB; against the module path in f32 (range {span:.4g}): " +
+          ", ".join(f"{k} {v:.4g} (limit {cell.limits[k]})" for k, v in gaps.items()) +
+          f"; {card}")
+    if not all(torch.isfinite(frames.float()).all().item() and v <= cell.limits[k]
+               for k, v in gaps.items()):
+        fail(f"synthesize_style_fast vs the module path: {gaps} beyond {cell.limits}")
+    s2p = harness.load_cell("cheetah64-rollout-b256").config
+    g = torch.Generator(device="cuda").manual_seed(0)
+    s2p_gen = S2PGenerator(s2p["state_dim"], device="cuda", **program.generator_kwargs(s2p))
+    s2p_gen = s2p_gen.to(torch.bfloat16).requires_grad_(False)
+    state = torch.randn(8, s2p["state_dim"], generator=g, device="cuda").bfloat16()
+    H = s2p["image_size"]
+    prev = (torch.rand(8, H, H, 3, generator=g, device="cuda") * 2 - 1).bfloat16()
+    ck.fused_mat_norm.launches = ck.fused_mat_norm.style_launches = 0
+    ck.style_epilogue.launches = 0
+    with torch.no_grad():
+        fast_apply(s2p_gen, fuse_fast_params(s2p_gen), state, prev)
+        s2p_gen(state, prev)
+    torch.cuda.synchronize()
+    s2p_launches = (ck.fused_mat_norm.launches, ck.fused_mat_norm.style_launches,
+                    ck.style_epilogue.launches)
+    if s2p_launches != (26, 0, 0):
+        fail(f"the S2P fast and module paths: {s2p_launches[0]} launches, {s2p_launches[1]} "
+             f"style launches, {s2p_launches[2]} style_epilogue launches; not 26, 0 and 0")
+    print(f"S2P fast + module path (64px, batch 8): {s2p_launches[0]} launches, "
+          f"{s2p_launches[1]} style launches, {s2p_launches[2]} style_epilogue launches")
+    return dict(launches=launches, style_launches=style, epilogue_launches=epilogues,
+                module_epilogue_launches=module_launches[2], s2p_epilogue_launches=s2p_launches[2],
+                ms=ms, peak_gb=peak_gb, gaps=gaps)
+
+
+def style_epilogue_record(epilogue: dict, path: dict) -> dict:
+    """The ``kernels`` line's record of the style-epilogue kernel (phase 28)."""
+    one = epilogue["per_pass"]["bfloat16"]
+    return dict(
+        name="style_epilogue", route="cuda", source="s2p_tpu_torch/csrc/style_epilogue.cu",
+        replaces=None, launches=path["epilogue_launches"],
+        launches_by_path=dict(stylegan_fast=path["epilogue_launches"],
+                              stylegan_module=path["module_epilogue_launches"],
+                              s2p_fast_and_module=path["s2p_epilogue_launches"]),
+        max_abs_err=epilogue["max_err"]["float32"],
+        max_abs_err_bf16=epilogue["max_err"]["bfloat16"],
+        ms=one["ms"], plain_ms=one["plain_ms"], bound_ms=one["bound_ms"], bound_by="bytes",
+        library_ms=None, eager_ms=one["eager_ms"], f32_pass=epilogue["per_pass"]["float32"],
+        per="ms/plain_ms/bound_ms/eager_ms: the 18 epilogues of one StyleGAN FFHQ 1024² pass "
+            "at batch 32 in bf16 (f32_pass: the same in f32); ms device time (CUDA graph "
+            "replay), plain_ms and eager_ms events; bound: x read and written and the f32 "
+            "noise read at the HBM rate; eager_ms: addcmul_, add_ and leaky_relu_ over the "
+            "NCHW view, the ops it replaced (library_ms None: no library kernel does the "
+            "three); the JAX package has no StyleGAN (replaces None)")
+
+
 HIDDEN_CELLS = ("cheetah64-rollout-b256", "walker100-bridge-b256", SPADE_CELL)
 HIDDEN_F32_TOL = 1e-5  # rtol and atol, as the norm kernels' (the plain version adds in one order)
 
@@ -4302,6 +4604,10 @@ def main() -> None:
     ap.add_argument("--hidden", action="store_true",
                     help="only run phase 27 (the hidden-map kernel on the three cells' main "
                          "paths), and stop")
+    ap.add_argument("--stylegan", action="store_true",
+                    help="only run phase 28 (the MAT-norm kernel as StyleGAN's AdaIN and the "
+                         "style-epilogue kernel at the 18 shapes of a pass, then StyleGAN's "
+                         "fast path against its module path), and stop")
     ap.add_argument("--time-paths", default=None, metavar="ROOT",
                     help="only time the two main paths end to end with the s2p_tpu_torch "
                          "of the checkout in ROOT and print them as JSON (one side of --ab)")
@@ -4337,6 +4643,12 @@ def main() -> None:
         return
     if args.hidden:
         print(json.dumps(phase_hidden_maps(ck, card)))
+        return
+    if args.stylegan:
+        adain, epilogue = phase_style_adain(ck, card), phase_style_epilogue(ck, card)
+        path = phase_style_path(ck, card)
+        print(json.dumps(dict(kernel=adain, path=path)))
+        print(json.dumps({"kernels": [style_epilogue_record(epilogue, path)]}))
         return
     if args.ab:
         phase_ab(ck, args.ab, card)
@@ -4466,6 +4778,13 @@ def main() -> None:
     hidden = phase_hidden_maps(ck, card)
     print(f"phase 27: {time.time() - t0:.1f} s")
 
+    # phase 28: the MAT-norm kernel as StyleGAN's AdaIN, then StyleGAN's fast path
+    t0 = time.time()
+    style_kernel = phase_style_adain(ck, card)
+    style_epilogue = phase_style_epilogue(ck, card)
+    style_path = phase_style_path(ck, card)
+    print(f"phase 28: {time.time() - t0:.1f} s")
+
     by_path = dict(serving=serving["launches"], training=training["fwd"], bridge=bridge,
                    gb_int8=gb_int8, slac_pretrain=pretrain["launches"], slac_iql=iql["launches"],
                    cql_slac=cql["launches"], eval_metrics=evals["launches"],
@@ -4473,7 +4792,7 @@ def main() -> None:
                    tp=tp, dp_rl_nccl=dp_rl["launches"]["fwd"],
                    dp_rl_gloo=dp_rl_gloo["launches"][0], collection=collection["launches"],
                    pixel_rl=pixel["launches"], goal_multitask=goal["launches"],
-                   dryrun=dry["fwd"])
+                   dryrun=dry["fwd"], stylegan=style_path["launches"])
     bwd_by_path = dict(serving=0, training=training["bwd"], bridge=0, gb_int8=0,
                        slac_pretrain=pretrain["bwd_launches"], slac_iql=iql["bwd_launches"],
                        cql_slac=cql["bwd_launches"], eval_metrics=evals["bwd_launches"],
@@ -4495,6 +4814,7 @@ def main() -> None:
         bridge_batch_ms=stats["bridge"]["ms"], bridge_batch_bias_ms=stats["bridge"]["bias_ms"],
         bridge_batch_plain_ms=stats["bridge"]["plain_ms"],
         bridge_batch_bound_ms=stats["bridge"]["bound_ms"],
+        stylegan_pass=style_kernel["per_pass"]["bfloat16"],
         per="ms/plain_ms/bound_ms: one 64px/ngf=64 generator step at batch 256 in bf16 "
             "(13 norms); bias_ms: the same with the gamma||beta bias folded (gb_bias), as "
             "the fast path runs it; train_step_*: the 13 norms of a 100px/ngf=64 train step at batch "
@@ -4503,7 +4823,8 @@ def main() -> None:
             "replay), where the records of PR 1 and PR 2 gave wall time per call as ms, so "
             "ms is not comparable with theirs; wall_ms: wall time per wrapper call in a "
             "loop, host included, as they timed ms; instance_norm_ms is F.instance_norm "
-            "alone, a partial yardstick",
+            "alone, a partial yardstick; stylegan_pass: the 18 AdaIN launches of one "
+            "StyleGAN FFHQ 1024² pass at batch 32 in bf16 (styles at pixel stride 0)",
     )
     bwd_record = dict(
         name="fused_mat_norm_bwd", route="cuda", source="s2p_tpu_torch/csrc/fused_mat_norm.cu",
@@ -4554,7 +4875,8 @@ def main() -> None:
             "bound: read h and write the maps once at the HBM rate; the JAX package has no "
             "such kernel (XLA fuses the arithmetic; replaces None)",
     )
-    print(json.dumps({"kernels": [fwd_record, bwd_record, spade_record, hidden_record]}))
+    print(json.dumps({"kernels": [fwd_record, bwd_record, spade_record, hidden_record,
+                                  style_epilogue_record(style_epilogue, style_path)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -11,7 +11,8 @@
 // axis. gamma and beta share x's shape and keep a unit channel stride, but
 // take their own batch and pixel strides: on the fast path they are the two
 // channel halves of one gamma||beta conv output (pixel stride 2C), read in
-// place with no copy.
+// place with no copy; in StyleGAN's AdaIN they are one value per (image,
+// channel), broadcast over the pixels at pixel stride 0.
 //
 // Bias. The forward may also take the fast path's gamma||beta conv bias
 // (gb_bias, [2C]: gamma's C values, then beta's), which it adds in f32 as
@@ -76,11 +77,12 @@
 // - Load width: on the vector path each thread moves 16 bytes (8 bf16 or 4
 //   f32 channels) per load and store; the `lanes` threads that cover one
 //   pixel's channel tile read it as one contiguous run. The plan takes it
-//   when C is a multiple of 32 (every tile whole, so the vector path needs
-//   no channel mask; every main-path C is) and every base pointer and
-//   batch/pixel stride is 16-byte aligned; otherwise the scalar variant of
-//   the same kernel runs (32 threads on 32 channels, ragged tiles masked),
-//   e.g. for beta = gb[..., 12:] with C = 12.
+//   when C is a multiple of 16 forward, 32 backward (every tile whole and of
+//   >= 2 or >= 4 lanes, so the vector path needs no channel mask; every
+//   main-path C is) and every base
+//   pointer and batch/pixel stride is 16-byte aligned; otherwise the scalar
+//   variant of the same kernel runs (32 threads on 32 channels, ragged
+//   tiles masked), e.g. for beta = gb[..., 12:] with C = 12.
 // - Reductions: warp shuffles across the threads of a channel, then the
 //   CTA's eight warps in shared memory, then the cluster.
 //

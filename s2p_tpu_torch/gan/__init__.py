@@ -13,7 +13,9 @@ from s2p_tpu_torch.gan.fast_inference import (
     fuse_fast_params,
     generate_rollout_fast,
     synthesize_fast,
+    synthesize_style_fast,
 )
+from s2p_tpu_torch.gan.stylegan import StyleGANGenerator
 from s2p_tpu_torch.gan.rollout import generate_rollout
 from s2p_tpu_torch.gan.discriminator import MultiscaleDiscriminator, NLayerDiscriminator
 from s2p_tpu_torch.gan.perceptual import (
@@ -51,6 +53,8 @@ __all__ = [
     "fuse_fast_params",
     "generate_rollout_fast",
     "synthesize_fast",
+    "synthesize_style_fast",
+    "StyleGANGenerator",
     "generate_rollout",
     "MultiscaleDiscriminator",
     "NLayerDiscriminator",

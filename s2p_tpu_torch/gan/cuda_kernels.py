@@ -34,9 +34,16 @@ before the launch, how a launch meets that bound:
   whose x (and dy) total ≤ 4 MiB, whose re-reads meet L2 and for which the
   copy into shared memory and its barrier cost more than they save;
 - load width: 16-byte loads and stores (8 bf16 or 4 f32 channels a
-  thread) when C is a multiple of 32 and every base pointer and stride is
-  16-byte aligned; otherwise a scalar variant of the same kernel (e.g. β =
-  ``gb[..., 12:]`` with C = 12).
+  thread) when C is a multiple of ``VEC_MULTIPLE`` (16 forward: StyleGAN's
+  16 channels at 1024²; 32 backward; every S2P width is both) and every
+  base pointer and stride is 16-byte aligned;
+  otherwise a scalar variant of the same kernel (e.g. β = ``gb[..., 12:]``
+  with C = 12).
+
+γ and β may also be one value per (image, channel) broadcast over the
+pixels, views of pixel stride 0 (StyleGAN's AdaIN, ``stylegan.adain_nchw``):
+the kernel reads them as it reads any pixel stride, and
+``fused_mat_norm.style_launches`` counts those launches beside ``launches``.
 
 ``spade_norm`` is SPADE's modulation with given per-channel statistics,
 ``(x·a + b)·(1 + γ) + β`` (GauGAN's generator at inference, whose batch
@@ -66,11 +73,19 @@ write it once), with no gradient; ``hidden_maps_plan`` sets its launch,
 ``hidden_maps_plain`` is its plain version, and ``cmap_launches`` counts
 the launches with the constant-map terms beside ``launches``.
 
+``style_epilogue`` is StyleGAN's layer epilogue before the instance norm,
+``lrelu(x + noise·strength + bias)`` with one float32 noise value a pixel
+and a strength and bias a channel, in one in-place pass, from
+``s2p_tpu_torch/csrc/style_epilogue.cu``; it replaces no TPU kernel (the
+JAX package has no StyleGAN). Bound by bytes (read and write x, read the
+noise), with no gradient; ``style_epilogue_plan`` sets its launch and
+``style_epilogue_plain`` is its plain version.
+
 Each kernel source is compiled by ``nvcc`` for ``sm_90a`` at its first use
 into ``build/s2p_tpu_torch/`` beside the package, named by the hash of its
 source, the headers beside it and the flags so that an edited source is
 rebuilt, and loaded with ``ctypes``: a program that never calls
-``spade_norm`` (or ``hidden_maps``) never builds it.
+``spade_norm`` (or ``hidden_maps``, or ``style_epilogue``) never builds it.
 """
 
 from __future__ import annotations
@@ -91,6 +106,7 @@ _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "fused_mat_norm.cu"
 SPADE_SOURCE = _PKG / "csrc" / "spade_norm.cu"
 HIDDEN_SOURCE = _PKG / "csrc" / "hidden_maps.cu"
+STYLE_SOURCE = _PKG / "csrc" / "style_epilogue.cu"
 BUILD_DIR = _PKG.parent / "build" / "s2p_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -103,6 +119,9 @@ CLUSTER_SIZES = (1, 2, 4, 8)  # 8: the portable cluster limit
 RESIDENT_BYTES = 100 * 1024  # a slice this small lets two CTAs share an SM
 SPLIT_MIN_HW = 1024  # smaller images are split over a cluster only to fit
 MIN_SPLIT_PIXELS = 256  # a cluster split for occupancy leaves each CTA this many pixels
+# the vector path's channel multiple: whole tiles of >= 2 lanes (forward: StyleGAN's 16
+# channels at 1024²) or >= 4 lanes (backward: the widths it was measured at)
+VEC_MULTIPLE = {"forward": 16, "backward": 32}
 STREAM_BYTES = 4 << 20  # a launch whose x (and dy) total this or less streams from L2
 CTA_THREADS = 256  # threads of a CTA (kThreads in the .cu)
 SCRATCH_BYTES_PER_CHANNEL = 88  # f32 reduction scratch, kScratchFloats in the .cu
@@ -299,7 +318,7 @@ def mat_norm_plan(batch: int, hw: int, C: int, dtype: torch.dtype, direction: st
     ``chip_smoke.py --sweep`` times every plan."""
     if direction not in ("forward", "backward"):
         raise ValueError(f"mat_norm_plan: direction {direction!r}")
-    vec = vec_ok and C % 32 == 0  # whole tiles: no channel mask on the vector path
+    vec = vec_ok and C % VEC_MULTIPLE[direction] == 0
     width = 16 // dtype.itemsize if vec else 1
     arrays = 1 if direction == "forward" else 2
     resident = arrays * batch * hw * C * dtype.itemsize > STREAM_BYTES
@@ -394,6 +413,7 @@ def _launch_forward(x, gamma, beta, eps, save, gb_bias=None):
         raise RuntimeError(f"fused_mat_norm: kernel launch failed with cudaError {err}")
     fused_mat_norm.launches += 1
     fused_mat_norm.bias_launches += gb_bias is not None
+    fused_mat_norm.style_launches += g_p == b_p == 0
     return out, mean, rstd
 
 
@@ -494,7 +514,7 @@ def fused_mat_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return _launch_forward(x, gamma, beta, eps, False, gb_bias)[0]
 
 
-fused_mat_norm.launches = fused_mat_norm.bias_launches = 0
+fused_mat_norm.launches = fused_mat_norm.bias_launches = fused_mat_norm.style_launches = 0
 fused_mat_norm_bwd.launches = 0
 
 
@@ -791,3 +811,93 @@ def hidden_maps(h: torch.Tensor, bias: torch.Tensor, widths, terms=None) -> list
 
 
 hidden_maps.launches = hidden_maps.cmap_launches = 0
+
+
+# -- StyleGAN's layer epilogue ------------------------------------------------------
+
+STYLE_THREADS = 256  # threads of a block (kThreads in style_epilogue.cu)
+STYLE_UNROLL = 4  # vectors a thread loads before it stores (kUnroll)
+STYLE_BLOCKS_PER_SM = 8  # a grid of this many blocks an SM at most (2,048 threads)
+
+
+@functools.cache
+def load_style_epilogue_library() -> ctypes.CDLL:
+    """Build (if needed) and load the style-epilogue library."""
+    lib = ctypes.CDLL(str(build(STYLE_SOURCE)))
+    fn = lib.s2p_style_epilogue
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def style_epilogue_plan(elems: int, C: int, dtype: torch.dtype, vec_ok: bool,
+                        sms: int) -> tuple[bool, int]:
+    """(vector path, grid) of one ``style_epilogue`` launch over ``elems`` =
+    B·H·W·C values: 16-byte vectors when C is a multiple of one and
+    ``vec_ok`` (x, strength and bias 16-byte aligned); blocks enough for
+    every vector at ``STYLE_UNROLL`` a thread, at most
+    ``STYLE_BLOCKS_PER_SM`` an SM (the kernel loops over the rest)."""
+    width = 16 // dtype.itemsize
+    vec = vec_ok and C % width == 0
+    vectors = elems // (width if vec else 1)
+    return vec, max(1, min(-(-vectors // (STYLE_THREADS * STYLE_UNROLL)),
+                           STYLE_BLOCKS_PER_SM * sms))
+
+
+def style_epilogue_plain(x: torch.Tensor, noise: torch.Tensor, strength: torch.Tensor,
+                         bias: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    """``lrelu(x + noise·strength + bias, slope)`` over NHWC x ``[B, H, W,
+    C]`` with noise ``[B, H, W]`` (float32) and strength and bias ``[C]``:
+    computed in float32 (float64 for float64 inputs) and rounded once to
+    x's type, as the kernel does."""
+    t = _acc(x) + _acc(noise)[..., None] * _acc(strength) + _acc(bias)
+    return torch.where(t > 0, t, t * slope).to(x.dtype)
+
+
+def _check_style_epilogue(x, noise, strength, bias) -> None:
+    if x.dim() != 4 or x.dtype not in _DTYPES or not x.is_contiguous():
+        raise ValueError(f"style_epilogue: x must be contiguous 4-D float32/bfloat16 NHWC, got "
+                         f"{x.dtype} {tuple(x.shape)} strides {x.stride()}")
+    B, H, W, C = x.shape
+    if (noise.shape != (B, H, W) or noise.dtype != torch.float32 or not noise.is_contiguous()
+            or noise.device != x.device):
+        raise ValueError(f"style_epilogue: noise must be contiguous float32 {(B, H, W)} on "
+                         f"{x.device}, got {noise.dtype} {tuple(noise.shape)} on {noise.device}")
+    for name, t in (("strength", strength), ("bias", bias)):
+        if t.shape != (C,) or t.dtype != x.dtype or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"style_epilogue: {name} must be contiguous {x.dtype} ({C},) on "
+                             f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def style_epilogue(x: torch.Tensor, noise: torch.Tensor, strength: torch.Tensor,
+                   bias: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    """StyleGAN's ``apply_noise``, ``apply_bias`` and leaky ReLU in place:
+    x ``[B, H, W, C]`` (contiguous NHWC, float32 or bfloat16) becomes
+    ``lrelu(x + noise·strength + bias, slope)``, noise ``[B, H, W]``
+    float32, strength and bias ``[C]`` of x's type; returns x. On the card:
+    the CUDA kernel, for inference only (it raises where autograd would
+    record). On the CPU: the plain version, written into x."""
+    _check_style_epilogue(x, noise, strength, bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, noise, strength, bias)):
+        raise RuntimeError("style_epilogue has no backward: call it under torch.no_grad()")
+    if x.device.type == "cpu":
+        return x.copy_(style_epilogue_plain(x, noise, strength, bias, slope))
+    if x.device.type != "cuda":
+        raise ValueError(f"style_epilogue: unsupported device {x.device}")
+    if x.numel() == 0:
+        return x
+    bits = x.data_ptr() | strength.data_ptr() | bias.data_ptr()
+    vec, grid = style_epilogue_plan(x.numel(), x.shape[-1], x.dtype, bits % 16 == 0,
+                                    _sm_count(x.device.index))
+    err = _on_stream(x, load_style_epilogue_library().s2p_style_epilogue,
+                     x.data_ptr(), noise.data_ptr(), strength.data_ptr(), bias.data_ptr(),
+                     x.numel(), x.shape[-1], slope, _DTYPES[x.dtype], int(vec), grid)
+    if err != 0:
+        raise RuntimeError(f"style_epilogue: kernel launch failed with cudaError {err}")
+    style_epilogue.launches += 1
+    return x
+
+
+style_epilogue.launches = 0

@@ -41,6 +41,22 @@ the SPADE-norm kernel with the running statistics folded at fuse time.
 The one-hot maps are made on the device from the label ids, per
 resolution (spans ``s2p.spade.seg`` and ``s2p.spade.onehot``), with their
 channels padded to a multiple of 8.
+
+A ``StyleGANGenerator`` renders through ``synthesize_style_fast``: its
+operands are folded once by the same ``fuse_fast_params``. The equalized
+learning rate's scales go into the weights; every ``Conv0_up`` becomes ONE
+4×4 stride-2 transposed conv (``stylegan.fused_up_kernel``: the official
+fused op from 128² up, the nearest ×2 and 3×3 conv below it with the kernel
+flipped); and the 18 style affines, the truncation ψ_i and ``dlatent_avg``
+fold into ONE ``[dlatent, Σ 2C]`` GEMM over the mapping's output w
+(``style_i = A_i·lerp(avg, w, ψ_i) + b_i = (ψ_i·A_i)·w + (b_i + (1 −
+ψ_i)·A_i·avg)``), as S2P's state terms are one matmul for every norm.
+The mapping and that GEMM run in float32 (a few MFLOP a pass), and the
+styles are rounded once to the generator's type. Each layer's epilogue is
+two hand-written kernels: the noise draw, then noise, bias and leaky ReLU in
+one in-place pass (``cuda_kernels.style_epilogue``, span
+``s2p.style.noise``); then the MAT-norm kernel with the layer's γ‖β slice
+of the styles at pixel stride 0.
 """
 
 from __future__ import annotations
@@ -50,10 +66,13 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from s2p_tpu_torch.gan.cuda_kernels import hidden_maps
+from s2p_tpu_torch.gan.cuda_kernels import hidden_maps, style_epilogue
 from s2p_tpu_torch.gan.generator import (CL, S2PGenerator, SPADEGenerator, label_onehot,
                                          mat_norm_nchw, spade_norm_nchw, upsample_nearest)
 from s2p_tpu_torch.gan.rollout import generate_rollout
+from s2p_tpu_torch.gan.stylegan import (GAIN, LRELU, StyleGANGenerator, adain_nchw, blur_kernel,
+                                        fused_up_kernel, layer_res, noise_map, pixel_norm,
+                                        runtime_coef)
 from s2p_tpu_torch.utils.profiling import annotate
 
 Params = Dict[str, Any]
@@ -176,7 +195,8 @@ def _fuse_block(block: torch.nn.Module, cond_weight: Callable[[torch.Tensor], to
 
 
 @torch.no_grad()
-def fuse_fast_params(gen: S2PGenerator | SPADEGenerator, gb_int8: bool = False) -> Params:
+def fuse_fast_params(gen: S2PGenerator | SPADEGenerator | StyleGANGenerator,
+                     gb_int8: bool = False) -> Params:
     """Precompute, once and outside the rollout loop, the fused operands the
     fast path reads beside ``gen``'s own layers: per block ``_fuse_block``'s.
     The two families differ in what a block's shared conv runs over.
@@ -192,7 +212,14 @@ def fuse_fast_params(gen: S2PGenerator | SPADEGenerator, gb_int8: bool = False) 
     A ``SPADEGenerator``'s runs over the one-hot label map, whose width,
     ``label_channels``, is ``semantic_nc`` padded to ``LABEL_ALIGN``: the
     weights' extra inputs (``shared_cat``'s and ``fc``'s) are zero, so the
-    sums are unchanged. It runs in float only."""
+    sums are unchanged. It runs in float only.
+
+    A ``StyleGANGenerator``'s are ``_fuse_style``'s (float only too)."""
+    if isinstance(gen, StyleGANGenerator):
+        if gb_int8:
+            raise ValueError("the StyleGAN fast path runs in float only")
+        with annotate("s2p.fast.fuse"):
+            return _fuse_style(gen)
     if isinstance(gen, SPADEGenerator):
         if gb_int8:
             raise ValueError("the SPADE fast path runs in float only")
@@ -417,4 +444,112 @@ def synthesize_fast(gen: SPADEGenerator, label_ids: torch.Tensor,
                                lambda t, n: _modulate(t, hmaps[n], p[n]))
         with annotate("s2p.gen.head"):
             x = torch.tanh(gen.conv_img(F.leaky_relu(x, 0.2)))
+        return x.permute(0, 2, 3, 1)
+
+
+# -- StyleGAN ----------------------------------------------------------------------
+
+def _fuse_style(gen: StyleGANGenerator) -> Params:
+    """StyleGAN's fused operands: ``mapping``, each dense layer's scaled
+    weight ``[in, out]`` and bias in f32; ``style``, the 18 affines with ψ_i
+    and ``dlatent_avg`` folded (``weight`` ``[dlatent, Σ 2C]``, ``bias``
+    ``[Σ 2C]``, f32); per resolution the ``blocks``' two layers, each with
+    its conv (``const``, or ``weight``: a 3×3 kernel, or an up-conv's 4×4
+    transposed kernel), ``noise`` (the strength) and ``bias`` ``[C]`` and its
+    ``style`` slice; the ``blur`` kernel of each up layer; ``torgb``. Conv
+    weights are scaled in f32, then cast to the generator's type in
+    channels_last memory."""
+    layers, specs = gen.layers(), gen.layer_specs
+    dtype = layers[1].weight.dtype
+    cast = lambda t: _cl(t.to(dtype)) if t.dim() == 4 else t.to(dtype)
+    mapping = [((d.weight.float() * runtime_coef(d.weight.shape, GAIN, d.lrmul)).t().contiguous(),
+                d.bias.float() * d.lrmul) for d in gen.G_mapping.children()]
+    avg = gen.dlatent_avg.float()
+    a_w, a_b, fused, off = [], [], [], 0
+    for i, (layer, (_, _, kind, _, c_out)) in enumerate(zip(layers, specs)):
+        sm = layer.StyleMod
+        A = sm.weight.float() * runtime_coef(sm.weight.shape, 1.0)  # [2C, dlatent]
+        psi = gen.psi(i)
+        a_w.append(psi * A)
+        a_b.append(sm.bias.float() + (1.0 - psi) * (A @ avg))
+        lp: Params = dict(kind=kind, style=(off, c_out),
+                          noise=layer.Noise.weight.to(dtype).contiguous(),
+                          bias=layer.bias.to(dtype).contiguous())
+        off += 2 * c_out
+        if kind == "const":
+            lp["const"] = cast(layer.const)
+        else:
+            w = layer.weight.float() * runtime_coef(layer.weight.shape, GAIN)
+            if kind == "up":  # one transposed conv: the official fused op, or nearest + conv
+                w = fused_up_kernel(w if gen.fused(layer_res(i)) else w.flip(2, 3))
+                lp["blur"] = cast(blur_kernel(c_out, gen.blur_filter, device=w.device))
+            lp["weight"] = cast(w)
+        fused.append(lp)
+    rgb = gen.G_synthesis.ToRGB_lod0
+    return dict(
+        mapping=mapping,
+        style=dict(weight=torch.cat(a_w).t().contiguous(), bias=torch.cat(a_b)),
+        blocks=[fused[i:i + 2] for i in range(0, len(fused), 2)],
+        torgb=dict(weight=cast(rgb.weight.float() * runtime_coef(rgb.weight.shape, 1.0)),
+                   bias=rgb.bias.to(dtype)),
+        dtype=dtype, latent_size=gen.latent_size)
+
+
+def _style_layer(x: torch.Tensor, lp: Params, styles: torch.Tensor, layer: int,
+                 noise_gen: Optional[torch.Generator]) -> torch.Tensor:
+    """One synthesis layer on the fast path: its conv (the constant, a 3×3
+    conv, or the up layer's transposed conv and blur), then the epilogue:
+    noise, bias and leaky ReLU in place (the style-epilogue kernel), then
+    AdaIN on the MAT-norm kernel."""
+    B = styles.shape[0]
+    if lp["kind"] == "const":  # a copy: the epilogue writes it in place
+        x = lp["const"].expand(B, -1, -1, -1).clone(memory_format=CL)
+    elif lp["kind"] == "conv":
+        x = _cl(F.conv2d(x, lp["weight"], None, padding=1))
+    else:
+        with annotate("s2p.gen.upsample"):
+            x = F.conv_transpose2d(x, lp["weight"], None, stride=2, padding=1)
+            x = _cl(F.conv2d(_cl(x), lp["blur"], None, padding=1, groups=x.shape[1]))
+    with annotate("s2p.style.noise"):
+        n = noise_map(B, layer, noise_gen, x.device)
+        style_epilogue(x.permute(0, 2, 3, 1), n.view(B, *n.shape[2:]), lp["noise"], lp["bias"],
+                       LRELU)
+    off, C = lp["style"]
+    return adain_nchw(x, styles[:, off:off + 2 * C])
+
+
+@torch.no_grad()
+def synthesize_style_fast(gen: StyleGANGenerator, z: torch.Tensor,
+                          noise_gen: Optional[torch.Generator] = None,
+                          params: Optional[Params] = None) -> torch.Tensor:
+    """StyleGAN's fast path: latents ``[B, latent_size]`` → frames ``[B, R,
+    R, num_channels]`` (NHWC, channels_last underneath), ``gen(z,
+    noise_gen)`` up to float re-association, with the same noise: each
+    layer's map is drawn from ``noise_gen`` in layer order. ``params`` =
+    ``fuse_fast_params(gen)``, fused here when not given. The mapping (pixel
+    norm, 8 dense layers) and ONE style GEMM run in f32 (``s2p.style.mapping``);
+    then per resolution (``s2p.gen.block_<i>``) two layers of
+    ``_style_layer``; then toRGB (``s2p.gen.head``)."""
+    if not isinstance(gen, StyleGANGenerator):
+        raise TypeError(f"synthesize_style_fast takes a StyleGANGenerator, not "
+                        f"{type(gen).__name__}")
+    params = params or fuse_fast_params(gen)
+    if z.dim() != 2 or z.shape[1] != params["latent_size"]:
+        raise ValueError(f"latents {tuple(z.shape)}: the generator takes [B, "
+                         f"{params['latent_size']}]")
+    with annotate("s2p.gen.forward"):
+        with annotate("s2p.style.mapping"):
+            w = pixel_norm(z.float())
+            for weight, bias in params["mapping"]:
+                w = F.leaky_relu(torch.addmm(bias, w, weight), LRELU)
+            st = params["style"]
+            styles = torch.addmm(st["bias"], w, st["weight"]).to(params["dtype"])
+        x = None
+        for i, pair in enumerate(params["blocks"]):
+            with annotate(f"s2p.gen.block_{i}"):
+                for j, lp in enumerate(pair):
+                    x = _style_layer(x, lp, styles, 2 * i + j, noise_gen)
+        with annotate("s2p.gen.head"):
+            rgb = params["torgb"]
+            x = F.conv2d(x, rgb["weight"], rgb["bias"])
         return x.permute(0, 2, 3, 1)

@@ -76,8 +76,10 @@ def check_plan(batch, H, C, dtype, direction):
     arrays = 1 if direction == "forward" else 2
     # a launch small enough that its re-reads meet L2 streams; every other fits
     small = arrays * batch * hw * C * dtype.itemsize <= ck.STREAM_BYTES
-    # every main-path width is on the 32 grid; the dry run's 8 and 16 are scalar
-    assert plan.path == ("streaming" if small else "resident") and plan.vec == (C % 32 == 0)
+    # every main-path width is on the 32 grid (the vector path both ways); the dry run's 8
+    # is scalar, its 16 scalar in the backward only
+    assert plan.path == ("streaming" if small else "resident")
+    assert plan.vec == (C % ck.VEC_MULTIPLE[direction] == 0)
     assert plan.cluster in (1, 2, 4, 8)
     assert plan.grid == batch * -(-C // plan.tile_c) * plan.cluster
     assert plan.grid % plan.cluster == 0
@@ -205,3 +207,99 @@ def test_scalar_shapes_of_chip_smoke_cover_every_path(direction):
 def test_plan_rejects_unknown_direction():
     with pytest.raises(ValueError, match="direction"):
         ck.mat_norm_plan(2, 16, 64, torch.float32, "sideways", True)
+
+
+# -- the S2P cells' plans are held; StyleGAN's widths take the vector path ------------
+
+# sha256 (first 16 hex digits) of repr(rows), rows = (H, C, vec_ok, tile_c, cluster,
+# pixels_per_cta, smem, path, vec, grid) for every (H, C) of
+# portbench/counts/mat_norm.py's norm_shapes, vec_ok True then False, as the plan was
+# before the vector path took C = 16 (StyleGAN's 1024² layers)
+S2P_PLAN_DIGESTS = {
+    "s2p-cheetah-64/B1/bfloat16/forward": "49522c0c140f1235",
+    "s2p-cheetah-64/B1/bfloat16/backward": "49522c0c140f1235",
+    "s2p-cheetah-64/B1/float32/forward": "567f0110e4b21b6e",
+    "s2p-cheetah-64/B1/float32/backward": "567f0110e4b21b6e",
+    "s2p-cheetah-64/B16/bfloat16/forward": "ef2e58248e0d96a4",
+    "s2p-cheetah-64/B16/bfloat16/backward": "8cb0aff401604800",
+    "s2p-cheetah-64/B16/float32/forward": "da316c30cc83a48f",
+    "s2p-cheetah-64/B16/float32/backward": "09e533b9996c078d",
+    "s2p-cheetah-64/B256/bfloat16/forward": "a38c7731ad8e6f6d",
+    "s2p-cheetah-64/B256/bfloat16/backward": "c133d78891ac7d07",
+    "s2p-cheetah-64/B256/float32/forward": "a0cd433b164d4ff8",
+    "s2p-cheetah-64/B256/float32/backward": "b6fa0f68b852c717",
+    "s2p-walker-100/B1/bfloat16/forward": "cf7c0c42e04a066c",
+    "s2p-walker-100/B1/bfloat16/backward": "cf7c0c42e04a066c",
+    "s2p-walker-100/B1/float32/forward": "32ee89a72a0f8f32",
+    "s2p-walker-100/B1/float32/backward": "693a039931388898",
+    "s2p-walker-100/B16/bfloat16/forward": "3a147ce710cf9d46",
+    "s2p-walker-100/B16/bfloat16/backward": "66252faa22f9b89b",
+    "s2p-walker-100/B16/float32/forward": "5c4c2587825c5822",
+    "s2p-walker-100/B16/float32/backward": "ba5aa529a0ece8e5",
+    "s2p-walker-100/B256/bfloat16/forward": "e1a480b7c9672d1a",
+    "s2p-walker-100/B256/bfloat16/backward": "6d7006a03105db2a",
+    "s2p-walker-100/B256/float32/forward": "ade0c908ab4791d5",
+    "s2p-walker-100/B256/float32/backward": "54298bddb08a756b",
+}
+
+
+def _plan_rows(cfg, batch, dtype, direction) -> list:
+    from portbench.counts import mat_norm
+
+    rows = []
+    for h, c in sorted(mat_norm.norm_shapes(cfg)):
+        for vec_ok in (True, False):
+            p = ck.mat_norm_plan(batch, h * h, c, dtype, direction, vec_ok)
+            rows.append((h, c, vec_ok, p.tile_c, p.cluster, p.pixels_per_cta, p.smem, p.path,
+                         p.vec, p.grid))
+    return rows
+
+
+@pytest.mark.parametrize("key", sorted(S2P_PLAN_DIGESTS))
+def test_s2p_cells_plans_are_unchanged(key):
+    """Every plan at every norm shape of the S2P cells' configurations (the
+    cells' batches and 1, bf16 and f32, forward and backward, aligned or
+    not) is the one the S2P cells were measured with."""
+    import hashlib
+    import json
+    from pathlib import Path
+
+    name, batch, dtype, direction = key.split("/")
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "portbench" / "configs"
+                      / f"{name}.json").read_text())
+    rows = _plan_rows(cfg, int(batch[1:]), getattr(torch, dtype), direction)
+    assert hashlib.sha256(repr(rows).encode()).hexdigest()[:16] == S2P_PLAN_DIGESTS[key]
+
+
+# StyleGAN FFHQ 1024² at batch 32: (r, C) of its AdaIN layers → (tile_c, path) in bf16
+STYLEGAN_PLANS = {(4, 512): (64, "streaming"), (8, 512): (64, "streaming"),
+                  (16, 512): (64, "resident"), (32, 512): (64, "resident"),
+                  (64, 256): (64, "resident"), (128, 128): (16, "resident"),
+                  (256, 64): (64, "streaming"), (512, 32): (32, "streaming"),
+                  (1024, 16): (16, "streaming")}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("res,C", sorted(STYLEGAN_PLANS))
+def test_stylegan_shapes_take_the_vector_path(res, C, dtype):
+    """Every AdaIN shape of a StyleGAN pass, 16 channels at 1024² too, moves
+    16 bytes a load: 2 lanes of 8 bf16 channels (or 4 of f32) cover a pixel."""
+    plan = ck.mat_norm_plan(32, res * res, C, dtype, "forward", True)
+    assert plan.vec and C % plan.tile_c == 0 and plan.tile_c * dtype.itemsize // 16 >= 2
+    if dtype == torch.bfloat16:
+        assert (plan.tile_c, plan.path) == STYLEGAN_PLANS[(res, C)]
+    if res >= 256:  # no slice fits in shared memory: x streams, split to the aim
+        assert plan.path == "streaming" and plan.grid >= ck.TARGET_CTAS
+    assert not ck.mat_norm_plan(32, res * res, C, dtype, "forward", False).vec
+
+
+def test_styles_at_pixel_stride_zero_keep_the_vector_path():
+    """γ and β as one [B, 2C] style tensor broadcast over the pixels: pixel
+    stride 0, batch stride 2C, 16-byte aligned."""
+    B, H, C = 2, 8, 16
+    x = torch.randn(B, H, H, C).to(torch.bfloat16)
+    style = torch.randn(B, 2 * C).to(torch.bfloat16)
+    g = style[:, :C].view(B, 1, 1, C).expand(B, H, H, C)
+    b = style[:, C:].view(B, 1, 1, C).expand(B, H, H, C)
+    assert ck._batch_pixel_strides(g, "gamma") == (2 * C, 0)
+    assert ck.forward_plan(x, g, b).vec
