@@ -335,6 +335,24 @@ TP world's batch of 2·world, f32, forward.
     module paths must launch the MAT-norm kernel with no style launch and
     the epilogue kernel not at all.
 
+29. StyleGAN2 (a main path): the demodulating style-epilogue kernel
+    against its plain version at the (r, C, mode) of each of its 17
+    launches a pass (FFHQ 1024² config-f, batch 32, bf16 and f32; d, the
+    next conv's style, noise, strength and bias drawn so that leaving out d,
+    the noise, the bias or the √2 gain fails the tolerance, which is
+    checked on the plain version), one launch counted each in ``launches``
+    and ``demod_launches``, its device time beside its bytes-bound time
+    (``portbench/counts/stylegan2.py``); the modulated conv's two forms per
+    resolution at batch 32 in bf16: the grouped conv over per-image
+    weights (the official fused form) against the fast path's shared-weight
+    conv (x·s and ·d in the epilogues), and the FIR's time beside its bound;
+    then ``synthesize_style_fast`` at batch 32 in bf16 with the
+    ``stylegan2-ffhq1024-b32`` cell's weights: a pass must launch the
+    epilogue kernel 17 times, all demodulating, and the MAT-norm kernel not
+    at all, and its frames must hold to the module path in f32 (TF32 off,
+    the same noise) within the cell's limits; a StyleGAN pass must still
+    launch the epilogue 18 times, none demodulating.
+
 ``--ab DIR`` runs phases 1 and 2, then times the norm kernels against
 those of the checkout in DIR in turns (without and with the γ‖β bias
 folded), then the two main paths end to end
@@ -343,7 +361,8 @@ its own (``--time-paths ROOT``), in turns, and stops. ``--sweep`` runs
 phases 1 and 2, then times every launch plan of the two kernels at each
 bf16 main-path shape, and stops. ``--spade`` runs phases 1, 2 and 26, and
 stops; ``--hidden`` runs phases 1, 2 and 27, and stops; ``--stylegan`` runs
-phases 1, 2 and 28, and stops.
+phases 1, 2 and 28, and stops; ``--stylegan2`` runs phases 1, 2 and 29, and
+stops.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` also writes a
@@ -4400,6 +4419,297 @@ def style_epilogue_record(epilogue: dict, path: dict) -> dict:
             "three); the JAX package has no StyleGAN (replaces None)")
 
 
+STYLEGAN2_CELL = "stylegan2-ffhq1024-b32"  # the benchmark cell whose shapes, weights and limits are used
+
+
+def style2_epilogue_inputs(B, r, c, mode, dtype, g) -> tuple:
+    """One demodulating epilogue's inputs at ``[B, r, r, c]`` in ``mode``
+    (``counts/stylegan2.epilogue_shapes``): x (an up layer's: the transposed
+    conv's ``[B, r + 1, r + 1, c]`` output as ``fir_src``) N(0, 2²), noise,
+    strength and bias N(0, 1), d in [0.5, 2) and the next conv's style in [0,
+    2) as strided ``[B, c]`` views of wider rows (as the fast path hands them
+    over); with toRGB its per-image weights N(0, 1/c), the bias and the
+    previous RGB sum N(0, 1). Returns (x, noise, strength, bias, keywords)."""
+    import torch
+    from s2p_tpu_torch.gan.stylegan import GAIN
+    from s2p_tpu_torch.gan.stylegan2 import fir_taps
+
+    randn = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    x = (randn(B, r, r, c) * 2).to(dtype)
+    noise = randn(B, r, r)
+    strength, bias = (randn(c).to(dtype) for _ in range(2))
+    rows = torch.rand(2, B, 512, generator=g, device="cuda")
+    kw = dict(demod=(rows[0] * 1.5 + 0.5)[:, :c], gain=GAIN, taps=fir_taps(),
+              mod=None if mode == "last" else (rows[1] * 2)[:, :c])
+    if mode == "fir":
+        kw["fir_src"] = (randn(B, r + 1, r + 1, c) * 2).to(dtype)
+    else:
+        kw.update(rgb=torch.empty(B, r, r, 3, device="cuda"), rgb_w=randn(B, 3, c) / c ** 0.5,
+                  rgb_bias=(0.1, -0.2, 0.3), rgb_prev=randn(B, r // 2, r // 2, 3) if r > 4 else None)
+    return x, noise, strength, bias, kw
+
+
+def phase_style2_epilogue(ck, card: str) -> dict:
+    """``style_demod_epilogue``, StyleGAN2's variant of ``style_epilogue``,
+    against its plain version (``style_demod_plain``) at every (r, C, mode) of a pass, bf16 at the
+    cell's batch and f32 at batch 8 (the plain version's f32 temporaries at
+    batch 32 outgrow the card); the plain version without d, without the
+    noise, without the bias or without the gain must break the tolerance
+    somewhere (checked here); each call one launch and one demodulating
+    launch; device time beside the bound (``counts/stylegan2.epilogue_bytes``
+    at the HBM rate, FLOPs at the f32 rate)."""
+    import torch
+    from portbench import harness
+    from portbench.counts import stylegan2 as counts2
+    from s2p_tpu_torch.gan.stylegan import LRELU
+
+    cell = harness.load_cell(STYLEGAN2_CELL)
+    G = cell.config["G"]
+    g = torch.Generator(device="cuda").manual_seed(2)
+    per_pass, max_err = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        B = cell.traffic["batch"] if dtype == torch.bfloat16 else 8
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        totals = dict(ms=0.0, bound_ms=0.0, plain_ms=0.0)
+        max_err[name] = 0.0
+        for r, c, mode in counts2.epilogue_shapes(G):
+            x, noise, strength, bias, kw = style2_epilogue_inputs(B, r, c, mode, dtype, g)
+            plain_kw = {k: v for k, v in kw.items() if k != "rgb"}
+            plain = lambda **over: ck.style_demod_plain(  # noqa: E731
+                x, noise, strength, bias, LRELU, **dict(plain_kw, **over))
+            want, want_rgb = plain()
+            ref = want if want is not None else want_rgb
+            off = lambda pair: (((pair[0] if want is not None else pair[1]).float() - ref.float())  # noqa: E731
+                                .abs() > tol + tol * ref.float().abs()).any().item()
+            zero = torch.zeros_like(bias)
+            for what, over in (("no d", dict(demod=torch.ones_like(kw["demod"]))),
+                               ("no noise", dict(strength=zero)), ("no bias", dict(bias=zero)),
+                               ("no gain", dict(gain=1.0))):
+                if what in ("no noise", "no bias"):
+                    pair = ck.style_demod_plain(x, noise, over.get("strength", strength),
+                                                over.get("bias", bias), LRELU, **plain_kw)
+                else:
+                    pair = plain(**over)
+                if not off(pair):
+                    fail(f"style_demod_epilogue check at {name} {(B, r, r, c)} {mode}: the "
+                         f"plain version with {what} passes the tolerance, so the comparison "
+                         "cannot catch it")
+                del pair
+            y = x.clone()
+            before = ck.style_epilogue.launches, ck.style_epilogue.demod_launches
+            with torch.no_grad():
+                ck.style_demod_epilogue(y, noise, strength, bias, slope=LRELU, **kw)
+            torch.cuda.synchronize()
+            counted = (ck.style_epilogue.launches - before[0],
+                       ck.style_epilogue.demod_launches - before[1])
+            if counted != (1, 1):
+                fail(f"style_demod_epilogue at {(B, r, r, c)} counted {counted}, not (1, 1)")
+            pairs = [] if want is None else [(y, want, tol)]
+            if want_rgb is not None:  # f32 sums over C channels in another order
+                pairs.append((kw["rgb"], want_rgb, 1e-4))
+            for have, exp, t in pairs:
+                err = (have.float() - exp.float()).abs()
+                max_err[name] = max(max_err[name], err.max().item() if have is y else 0.0)
+                if not torch.isfinite(have).all() or (err > t + t * exp.float().abs()).any():
+                    fail(f"style_demod_epilogue ({mode}) vs plain at {name} {(B, r, r, c)}: "
+                         f"max |err| {err.max().item():.3g}")
+                del err
+            del want, want_rgb, ref, y, pairs
+            vec, grid = ck.style_epilogue_plan(x.numel(), c, dtype, True, ck._sm_count(0))
+            with torch.no_grad():
+                ms = device_ms(lambda: ck.style_demod_epilogue(x, noise, strength, bias,
+                                                               slope=LRELU, **kw), iters=10)
+                plain_ms = time_ms(lambda: plain(), iters=2, warmup=1)
+            bound = 1e3 * max(counts2.epilogue_bytes(B, r, c, x.element_size(), mode)
+                              / HBM_BYTES_PER_S, counts2.epilogue_flops(B, r, c, mode) / 67e12)
+            print(f"style_epilogue demod {mode} {name} {(B, r, r, c)}: {ms:.4f} ms (bound "
+                  f"{bound:.4f}, {100 * bound / ms:.1f}%), plain {plain_ms:.4f} ms; "
+                  f"{'vec16' if vec else 'scalar'} grid={grid}")
+            for k, v in (("ms", ms), ("bound_ms", bound), ("plain_ms", plain_ms)):
+                totals[k] += v
+            del x, noise, kw, plain_kw
+            torch.cuda.empty_cache()
+        per_pass[name] = dict(totals, batch=B,
+                              roofline_pct=100 * totals["bound_ms"] / totals["ms"])
+        print(f"style_epilogue demod {name}, one StyleGAN2 pass at batch {B} (17 launches): "
+              f"{totals['ms']:.4f} ms against a bound of {totals['bound_ms']:.4f} ms "
+              f"({per_pass[name]['roofline_pct']:.1f}%), plain {totals['plain_ms']:.4f} ms")
+    print(f"style_epilogue demod vs plain: max |err| f32 {max_err['float32']:.3g}, bf16 "
+          f"{max_err['bfloat16']:.3g} (tolerance f32 rtol=atol {F32_TOL}, bf16 rtol=atol "
+          f"{BF16_TOL}; the RGB sums 1e-4); {card}")
+    return dict(per_pass=per_pass, max_err=max_err)
+
+
+def phase_modconv_ab(card: str) -> dict:
+    """The modulated conv's two forms at each StyleGAN2 layer's shapes (batch
+    32, bf16, events): ``grouped``, the official fused form (per-image
+    weights w·s·d built from the styles, then ONE conv with groups = B over
+    the batch folded into the channels), against ``shared``, the fast path's
+    conv with the shared weight on an input already scaled by s (x·s and ·d
+    ride in the epilogues); an up layer's conv is the transposed conv in
+    both. Per resolution; then the up layers' FIR run as PyTorch's depthwise
+    conv, the path the epilogue kernel replaced, beside its byte bound (read
+    the transposed conv's output, write the map)."""
+    import torch
+    import torch.nn.functional as F
+    from portbench import harness
+    from portbench.reference import stylegan2 as ref2
+    from s2p_tpu_torch.gan.stylegan2 import fir_kernel, up_weight
+
+    cell = harness.load_cell(STYLEGAN2_CELL)
+    G, B = cell.config["G"], cell.traffic["batch"]
+    dt, cl = torch.bfloat16, torch.channels_last
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows, fir_ms, fir_bound = {}, 0.0, 0.0
+    for _, kind, res, c_in, c_out, _ in ref2.conv_layers(G):
+        r_in = res // 2 if kind == "up" else res
+        x = torch.randn(B, c_in, r_in, r_in, generator=g, device="cuda").to(dt)
+        x = x.contiguous(memory_format=cl)
+        w = torch.randn(c_out, c_in, 3, 3, generator=g, device="cuda") / (3 * c_in ** 0.5)
+        s = torch.rand(B, c_in, generator=g, device="cuda") + 0.5
+        wt = up_weight(w).to(dt).contiguous(memory_format=cl)
+        wc = w.to(dt).contiguous(memory_format=cl)
+
+        def shared():
+            if kind == "up":
+                return F.conv_transpose2d(x, wt, stride=2)
+            return F.conv2d(x, wc, padding=1)
+
+        def grouped():
+            ww = w[None] * s[:, None, :, None, None]
+            ww = ww * torch.rsqrt(ww.square().sum((2, 3, 4)) + 1e-8)[:, :, None, None, None]
+            xg = x.reshape(1, B * c_in, r_in, r_in)
+            if kind == "up":
+                wg = ww.flip(3, 4).transpose(1, 2).reshape(B * c_in, c_out, 3, 3).to(dt)
+                return F.conv_transpose2d(xg, wg, stride=2, groups=B)
+            return F.conv2d(xg, ww.reshape(B * c_out, c_in, 3, 3).to(dt), padding=1, groups=B)
+
+        with torch.no_grad():
+            row = rows.setdefault(res, dict(shared_ms=0.0, grouped_ms=0.0))
+            row["shared_ms"] += time_ms(shared, iters=5, warmup=2)
+            row["grouped_ms"] += time_ms(grouped, iters=3, warmup=1)
+            if kind == "up":
+                h = shared().contiguous(memory_format=cl)
+                fir = fir_kernel(c_out, G["resample_kernel"], dt, "cuda").flip(2, 3)
+                fir = fir.contiguous(memory_format=cl)
+                fir_ms += time_ms(lambda: F.conv2d(h, fir, padding=1, groups=c_out), iters=3,
+                                  warmup=1)
+                fir_bound += 1e3 * B * ((res + 1) ** 2 + res ** 2) * c_out * 2 / HBM_BYTES_PER_S
+                del h
+        del x
+        torch.cuda.empty_cache()
+    for res, row in sorted(rows.items()):
+        print(f"modulated conv at {res}² (batch {B}, bf16): shared weight "
+              f"{row['shared_ms']:.4f} ms, grouped per-image weights {row['grouped_ms']:.4f} ms "
+              f"({row['grouped_ms'] / row['shared_ms']:.2f}x)")
+    total = {k: sum(r[k] for r in rows.values()) for k in ("shared_ms", "grouped_ms")}
+    print(f"modulated convs of one StyleGAN2 pass: shared {total['shared_ms']:.3f} ms, grouped "
+          f"{total['grouped_ms']:.3f} ms; the up layers' FIR as a depthwise conv "
+          f"{fir_ms:.4f} ms (bound {fir_bound:.4f}, {100 * fir_bound / fir_ms:.1f}%); {card}")
+    return dict(per_res=rows, total=total, fir_depthwise_ms=fir_ms, fir_bound_ms=fir_bound)
+
+
+def phase_style2_path(ck, card: str) -> dict:
+    """StyleGAN2's main path, ``synthesize_style_fast``, at the
+    ``stylegan2-ffhq1024-b32`` cell's shapes and weights (FFHQ 1024², batch
+    32, bf16): 17 epilogue launches a pass, all demodulating, no MAT-norm
+    launch (counted from 0 just before it), its time, its peak memory, and
+    its frames against the module path in f32 with TF32 off and the same
+    noise, held to the cell's limits (gaps ÷ the module frames' range);
+    then one StyleGAN pass must still launch the epilogue 18 times and none
+    demodulating."""
+    import torch
+    from portbench import harness
+    from portbench.counts import stylegan2 as counts2
+    from s2p_tpu_torch.gan import StyleGANGenerator, fuse_fast_params, synthesize_style_fast
+
+    cell = harness.load_cell(STYLEGAN2_CELL)
+    ctx = harness.Ctx(cell, 0, torch.device("cuda"))
+    drv, G, tr = cell.driver, cell.config["G"], cell.traffic
+    weights = drv.seeded_weights(ctx)
+    gen = drv.build_generator(G, weights, ctx.device, torch.bfloat16)
+    params = fuse_fast_params(gen)
+    z = torch.randn(tr["batch"], G["latent_size"], generator=ctx.generator("traffic"),
+                    device=ctx.device)
+    noise_gen = torch.Generator(device="cuda")
+    run = lambda: synthesize_style_fast(gen, z, noise_gen.manual_seed(7), params)  # noqa: E731
+    counters = lambda: (ck.fused_mat_norm.launches, ck.style_epilogue.launches,  # noqa: E731
+                        ck.style_epilogue.demod_launches)
+    with torch.no_grad():
+        run()  # warms every shape
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = counters()
+        frames = run()
+        torch.cuda.synchronize()
+        launches = tuple(a - b for a, b in zip(counters(), before))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n = counts2.launches(G)  # 17 at 1024²
+        if launches != (0, n, n):
+            fail(f"synthesize_style_fast (StyleGAN2): {launches} fused_mat_norm, style_epilogue "
+                 f"and demodulating launches a pass; not 0, {n} and {n}")
+        ms = time_ms(run, iters=10)
+        tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        gen32 = drv.build_generator(G, weights, ctx.device, torch.float32)
+        module = gen32(z[:8], noise_gen.manual_seed(7)).float()  # 8 rows fit beside the rest
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        fast8 = synthesize_style_fast(gen, z[:8], noise_gen.manual_seed(7), params).float()
+    del gen32, params, gen
+    err = fast8 - module
+    span = (module.max() - module.min()).item()
+    gaps = dict(frame_max_gap=err.abs().max().item() / span,
+                frame_rms_gap=err.square().mean().sqrt().item() / span)
+    del err, module, fast8
+    torch.cuda.empty_cache()
+    print(f"StyleGAN2 synthesize_style_fast, batch {len(z)} at {G['resolution']}² bf16: "
+          f"launches (fused_mat_norm, style_epilogue, demodulating) {launches} a pass; "
+          f"{ms:.3f} ms a pass ({1e3 * len(z) / ms:.1f} frames/s, events, host included); peak "
+          f"{peak_gb:.2f} GB; 8 rows against the module path in f32 (range {span:.4g}): " +
+          ", ".join(f"{k} {v:.4g} (limit {cell.limits[k]})" for k, v in gaps.items()) +
+          f"; {card}")
+    if not all(torch.isfinite(frames.float()).all().item() and v <= cell.limits[k]
+               for k, v in gaps.items()):
+        fail(f"synthesize_style_fast (StyleGAN2) vs the module path: {gaps} beyond "
+             f"{cell.limits}")
+    del frames
+    style = harness.load_cell(STYLEGAN_CELL).config["G"]
+    sg = StyleGANGenerator(**dict(style, resolution=64), device="cuda").to(torch.bfloat16)
+    sg = sg.requires_grad_(False)
+    before = counters()
+    with torch.no_grad():
+        synthesize_style_fast(sg, z[:2], None)
+    torch.cuda.synchronize()
+    sg_launches = tuple(a - b for a, b in zip(counters(), before))
+    if sg_launches[1:] != (10, 0):
+        fail(f"a StyleGAN pass at 64²: {sg_launches} launches; the epilogue 10 times, none "
+             "demodulating, expected")
+    print(f"StyleGAN fast path at 64² (10 layers): launches {sg_launches}")
+    return dict(launches=launches, ms=ms, peak_gb=peak_gb, gaps=gaps,
+                stylegan_launches=sg_launches)
+
+
+def style2_epilogue_record(epilogue: dict, path: dict) -> dict:
+    """The ``kernels`` line's record of StyleGAN2's demodulating epilogue (phase 29)."""
+    one = epilogue["per_pass"]["bfloat16"]
+    return dict(
+        name="style_epilogue_demod", route="cuda", source="s2p_tpu_torch/csrc/style_epilogue.cu",
+        replaces=None, launches=path["launches"][2],
+        launches_by_path=dict(stylegan2_fast=path["launches"][2],
+                              stylegan_fast=path["stylegan_launches"][2]),
+        max_abs_err=epilogue["max_err"]["float32"],
+        max_abs_err_bf16=epilogue["max_err"]["bfloat16"],
+        ms=one["ms"], plain_ms=one["plain_ms"], bound_ms=one["bound_ms"], bound_by="bytes",
+        library_ms=None, f32_pass=epilogue["per_pass"]["float32"],
+        per="ms/plain_ms/bound_ms: the 17 demodulating epilogues of one StyleGAN2 config-f "
+            "FFHQ 1024² pass at batch 32 in bf16 (f32_pass: the same in f32); ms device time "
+            "(CUDA graph replay), plain_ms events; bound: x read and written (twice where the "
+            "layer feeds toRGB too), the f32 noise, d and the next style read, at the HBM "
+            "rate; no library kernel does it (library_ms None); the JAX package has no "
+            "StyleGAN2 (replaces None)")
+
+
 HIDDEN_CELLS = ("cheetah64-rollout-b256", "walker100-bridge-b256", SPADE_CELL)
 HIDDEN_F32_TOL = 1e-5  # rtol and atol, as the norm kernels' (the plain version adds in one order)
 
@@ -4608,6 +4918,10 @@ def main() -> None:
                     help="only run phase 28 (the MAT-norm kernel as StyleGAN's AdaIN and the "
                          "style-epilogue kernel at the 18 shapes of a pass, then StyleGAN's "
                          "fast path against its module path), and stop")
+    ap.add_argument("--stylegan2", action="store_true",
+                    help="only run phase 29 (the demodulating style-epilogue kernel at the 17 "
+                         "shapes of a StyleGAN2 pass, the modulated conv's two forms, then "
+                         "StyleGAN2's fast path against its module path), and stop")
     ap.add_argument("--time-paths", default=None, metavar="ROOT",
                     help="only time the two main paths end to end with the s2p_tpu_torch "
                          "of the checkout in ROOT and print them as JSON (one side of --ab)")
@@ -4649,6 +4963,12 @@ def main() -> None:
         path = phase_style_path(ck, card)
         print(json.dumps(dict(kernel=adain, path=path)))
         print(json.dumps({"kernels": [style_epilogue_record(epilogue, path)]}))
+        return
+    if args.stylegan2:
+        epilogue, ab = phase_style2_epilogue(ck, card), phase_modconv_ab(card)
+        path = phase_style2_path(ck, card)
+        print(json.dumps(dict(modconv=ab, path=path)))
+        print(json.dumps({"kernels": [style2_epilogue_record(epilogue, path)]}))
         return
     if args.ab:
         phase_ab(ck, args.ab, card)
@@ -4785,6 +5105,14 @@ def main() -> None:
     style_path = phase_style_path(ck, card)
     print(f"phase 28: {time.time() - t0:.1f} s")
 
+    # phase 29: StyleGAN2's demodulating epilogue, its modulated conv's two forms, then
+    # StyleGAN2's fast path
+    t0 = time.time()
+    style2_epilogue = phase_style2_epilogue(ck, card)
+    phase_modconv_ab(card)
+    style2_path = phase_style2_path(ck, card)
+    print(f"phase 29: {time.time() - t0:.1f} s")
+
     by_path = dict(serving=serving["launches"], training=training["fwd"], bridge=bridge,
                    gb_int8=gb_int8, slac_pretrain=pretrain["launches"], slac_iql=iql["launches"],
                    cql_slac=cql["launches"], eval_metrics=evals["launches"],
@@ -4876,7 +5204,8 @@ def main() -> None:
             "such kernel (XLA fuses the arithmetic; replaces None)",
     )
     print(json.dumps({"kernels": [fwd_record, bwd_record, spade_record, hidden_record,
-                                  style_epilogue_record(style_epilogue, style_path)]}))
+                                  style_epilogue_record(style_epilogue, style_path),
+                                  style2_epilogue_record(style2_epilogue, style2_path)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

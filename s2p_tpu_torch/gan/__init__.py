@@ -16,6 +16,7 @@ from s2p_tpu_torch.gan.fast_inference import (
     synthesize_style_fast,
 )
 from s2p_tpu_torch.gan.stylegan import StyleGANGenerator
+from s2p_tpu_torch.gan.stylegan2 import StyleGAN2Generator
 from s2p_tpu_torch.gan.rollout import generate_rollout
 from s2p_tpu_torch.gan.discriminator import MultiscaleDiscriminator, NLayerDiscriminator
 from s2p_tpu_torch.gan.perceptual import (
@@ -55,6 +56,7 @@ __all__ = [
     "synthesize_fast",
     "synthesize_style_fast",
     "StyleGANGenerator",
+    "StyleGAN2Generator",
     "generate_rollout",
     "MultiscaleDiscriminator",
     "NLayerDiscriminator",

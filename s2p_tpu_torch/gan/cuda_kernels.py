@@ -79,7 +79,15 @@ and a strength and bias a channel, in one in-place pass, from
 ``s2p_tpu_torch/csrc/style_epilogue.cu``; it replaces no TPU kernel (the
 JAX package has no StyleGAN). Bound by bytes (read and write x, read the
 noise), with no gradient; ``style_epilogue_plan`` sets its launch and
-``style_epilogue_plain`` is its plain version.
+``style_epilogue_plain`` is its plain version. ``style_demod_epilogue``
+is StyleGAN2's variant (its own kernel in the same source): the modulated
+conv's demodulation scale ``[B, C]`` at pixel stride 0 and the activation's
+gain, with ``mod`` the next conv's input modulation, for an up layer the FIR
+of ``upsample_conv_2d`` read from the transposed conv's output (``fir_src``;
+``fir_plain`` is its plain version), and for a layer that feeds toRGB the
+skip generator's toRGB and RGB upsample (``rgb``; ``rgb_plain``);
+``style_demod_plain`` is its plain version, and ``style_epilogue.demod_launches``
+counts its launches beside ``style_epilogue.launches``.
 
 Each kernel source is compiled by ``nvcc`` for ``sm_90a`` at its first use
 into ``build/s2p_tpu_torch/`` beside the package, named by the hash of its
@@ -818,6 +826,7 @@ hidden_maps.launches = hidden_maps.cmap_launches = 0
 STYLE_THREADS = 256  # threads of a block (kThreads in style_epilogue.cu)
 STYLE_UNROLL = 4  # vectors a thread loads before it stores (kUnroll)
 STYLE_BLOCKS_PER_SM = 8  # a grid of this many blocks an SM at most (2,048 threads)
+FIR_ROWS = 4  # output rows a thread of the FIR pass computes down a column (kFirRows)
 
 
 @functools.cache
@@ -826,6 +835,11 @@ def load_style_epilogue_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build(STYLE_SOURCE)))
     fn = lib.s2p_style_epilogue
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.s2p_style_epilogue_demod
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
+                   + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
@@ -847,13 +861,73 @@ def style_epilogue_plan(elems: int, C: int, dtype: torch.dtype, vec_ok: bool,
 
 
 def style_epilogue_plain(x: torch.Tensor, noise: torch.Tensor, strength: torch.Tensor,
-                         bias: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+                         bias: torch.Tensor, slope: float = 0.2,
+                         demod: torch.Tensor | None = None, gain: float = 1.0) -> torch.Tensor:
     """``lrelu(x + noise·strength + bias, slope)`` over NHWC x ``[B, H, W,
     C]`` with noise ``[B, H, W]`` (float32) and strength and bias ``[C]``:
     computed in float32 (float64 for float64 inputs) and rounded once to
-    x's type, as the kernel does."""
-    t = _acc(x) + _acc(noise)[..., None] * _acc(strength) + _acc(bias)
-    return torch.where(t > 0, t, t * slope).to(x.dtype)
+    x's type, as the kernel does. StyleGAN2's variant (``demod`` ``[B, C]``,
+    one value an image and channel, broadcast over the pixels): ``lrelu(x·d
+    + noise·strength + bias, slope)·gain``."""
+    t = _acc(x)
+    if demod is not None:
+        t = t * _acc(demod)[:, None, None, :]
+    t = t + _acc(noise)[..., None] * _acc(strength) + _acc(bias)
+    t = torch.where(t > 0, t, t * slope)
+    return (t if demod is None else t * gain).to(x.dtype)
+
+
+def fir_plain(src: torch.Tensor, taps) -> torch.Tensor:
+    """``upsample_conv_2d``'s FIR of the transposed conv's NHWC output ``[B,
+    H + 1, W + 1, C]``: the outer product of the 4 ``taps`` (gain included),
+    flipped as ``upfirdn_2d`` convolves, pads 1/1 → ``[B, H, W, C]`` in the
+    accumulation type."""
+    x = _acc(src).permute(0, 3, 1, 2)
+    t = torch.tensor(taps, dtype=x.dtype, device=x.device)
+    k = torch.outer(t, t).flip(0, 1).expand(x.shape[1], 1, 4, 4)
+    return torch.nn.functional.conv2d(x, k, padding=1, groups=x.shape[1]).permute(0, 2, 3, 1)
+
+
+def rgb_plain(act: torch.Tensor, rgb_w: torch.Tensor, rgb_bias, rgb_prev: torch.Tensor | None,
+              taps) -> torch.Tensor:
+    """The skip generator's toRGB of the activation ``act`` ``[B, H, W, C]``
+    with per-image weights ``rgb_w`` ``[B, 3, C]`` (the style folded in),
+    plus ``rgb_bias`` (3 floats) and ``upsample_2d`` of the previous RGB sum
+    ``rgb_prev`` ``[B, H/2, W/2, 3]`` (zero insertion, pads 2/1, the outer
+    product of the 4 ``taps``): the new sum ``[B, H, W, 3]`` in float32."""
+    out = torch.einsum("bhwc,bjc->bhwj", act.float(), rgb_w.float())
+    out = out + torch.tensor(rgb_bias, dtype=out.dtype, device=out.device)
+    if rgb_prev is not None:
+        t = torch.tensor(taps, dtype=out.dtype, device=out.device)
+        k = torch.outer(t, t).expand(3, 1, 4, 4)
+        up = torch.nn.functional.conv_transpose2d(rgb_prev.float().permute(0, 3, 1, 2), k,
+                                                  stride=2, padding=1, groups=3)
+        out = out + up.permute(0, 2, 3, 1)
+    return out
+
+
+def style_demod_plain(x, noise, strength, bias, slope, demod, gain, mod=None, fir_src=None,
+                      taps=None, rgb_w=None, rgb_bias=None, rgb_prev=None) -> tuple:
+    """``style_demod_epilogue`` in plain PyTorch, on any device: (what x
+    becomes, in x's type, or None for the last layer's toRGB pass; the new
+    RGB sum in float32, or None for the FIR pass)."""
+    src = _acc(x) if fir_src is None else fir_plain(fir_src, taps)
+    act = style_epilogue_plain(src, noise, strength, bias, slope, demod, gain)
+    rgb = None if rgb_w is None else rgb_plain(act, rgb_w, rgb_bias, rgb_prev, taps)
+    if mod is not None:
+        act = act * _acc(mod)[:, None, None, :]
+    return (act.to(x.dtype) if rgb is None or mod is not None else None), rgb
+
+
+def _check_rows(name: str, t: torch.Tensor, x: torch.Tensor) -> None:
+    """A ``[B, C]`` float32 operand of StyleGAN2's variant: unit channel stride, rows
+    at least C apart, on x's device."""
+    B, C = x.shape[0], x.shape[-1]
+    if (t.shape != (B, C) or t.dtype != torch.float32 or t.stride(1) != 1 or t.stride(0) < C
+            or t.device != x.device):
+        raise ValueError(f"style_demod_epilogue: {name} must be float32 {(B, C)} with unit channel "
+                         f"stride on {x.device}, got {t.dtype} {tuple(t.shape)} strides "
+                         f"{t.stride()} on {t.device}")
 
 
 def _check_style_epilogue(x, noise, strength, bias) -> None:
@@ -900,4 +974,97 @@ def style_epilogue(x: torch.Tensor, noise: torch.Tensor, strength: torch.Tensor,
     return x
 
 
-style_epilogue.launches = 0
+def style_demod_epilogue(x: torch.Tensor, noise: torch.Tensor, strength: torch.Tensor,
+                         bias: torch.Tensor, demod: torch.Tensor, slope: float = 0.2,
+                         gain: float = 1.0, *, taps, mod: torch.Tensor | None = None,
+                         fir_src: torch.Tensor | None = None, rgb: torch.Tensor | None = None,
+                         rgb_w: torch.Tensor | None = None, rgb_bias=None,
+                         rgb_prev: torch.Tensor | None = None) -> torch.Tensor:
+    """StyleGAN2's variant of ``style_epilogue``: one of two passes over
+    ``t = lrelu(x·demod + noise·strength + bias, slope)·gain``, x, noise,
+    strength and bias as there, ``demod`` float32 ``[B, C]`` (unit channel
+    stride, any row stride: read at pixel stride 0), ``taps`` the FIR's 4
+    separable taps (gain included) and ``mod`` (the same form as ``demod``)
+    the next conv's style. Given ``fir_src`` (an up layer's transposed conv
+    output ``[B, H + 1, W + 1, C]``, like x), the FIR of it (``fir_plain``)
+    is read in x's place, whose contents are ignored, and x becomes
+    ``t·mod``. Given ``rgb`` (float32 ``[B, H, W, 3]``, contents ignored),
+    ``rgb_w`` and ``rgb_bias``, rgb becomes the skip's new RGB sum
+    ``rgb_plain(t, rgb_w, rgb_bias, rgb_prev, taps)`` and x becomes
+    ``t·mod``, or stays as it is without ``mod`` (the last layer). Returns
+    x. On the card its own kernel, counted in ``style_epilogue.launches``
+    and ``style_epilogue.demod_launches``; on the CPU ``style_demod_plain``."""
+    _check_style_epilogue(x, noise, strength, bias)
+    _check_style_demod(x, demod, mod, fir_src, taps, rgb, rgb_w, rgb_bias, rgb_prev)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, noise, strength, bias)):
+        raise RuntimeError("style_demod_epilogue has no backward: call it under torch.no_grad()")
+    if x.device.type == "cpu":
+        out, new_rgb = style_demod_plain(x, noise, strength, bias, slope, demod, gain, mod,
+                                         fir_src, taps, rgb_w if rgb is not None else None,
+                                         rgb_bias, rgb_prev)
+        if new_rgb is not None:
+            rgb.copy_(new_rgb)
+        return x if out is None else x.copy_(out)
+    if x.device.type != "cuda":
+        raise ValueError(f"style_demod_epilogue: unsupported device {x.device}")
+    if x.numel() == 0:
+        return x
+    ptrs = [x, strength, bias, demod] + [t for t in (mod, fir_src, rgb_w) if t is not None]
+    bits = functools.reduce(lambda a, t: a | t.data_ptr(), ptrs, 0)
+    lds = [demod.stride(0)] + ([mod.stride(0)] if mod is not None else [])
+    vec_ok = bits % 16 == 0 and all(ld % 4 == 0 for ld in lds)
+    vec, grid = style_epilogue_plan(x.numel(), x.shape[-1], x.dtype, vec_ok,
+                                    _sm_count(x.device.index))
+    if x.numel() // (16 // x.element_size() if vec else 1) >= 2 ** 31:
+        raise ValueError(f"style_demod_epilogue: {tuple(x.shape)} holds 2^31 vectors or more; "
+                         "the kernel's index math is 32-bit")
+    B, H, W, C = x.shape
+    src, out = (x, None) if fir_src is None else (fir_src, x)
+    if rgb is not None:
+        rgb.zero_()  # the kernel adds into it
+    floats = lambda v, n: None if v is None else (ctypes.c_float * n)(*map(float, v))  # noqa: E731
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = _on_stream(x, load_style_epilogue_library().s2p_style_epilogue_demod,
+                     src.data_ptr(), ptr(out), noise.data_ptr(), strength.data_ptr(),
+                     bias.data_ptr(), demod.data_ptr(), ptr(mod), ptr(rgb_w), ptr(rgb),
+                     ptr(rgb_prev), floats(rgb_bias, 3), x.numel(), C, H * W, W,
+                     demod.stride(0), mod.stride(0) if mod is not None else 0, slope, gain,
+                     floats(taps, 4), _DTYPES[x.dtype], int(vec), grid)
+    if err != 0:
+        raise RuntimeError(f"style_demod_epilogue: kernel launch failed with cudaError {err}")
+    style_epilogue.launches += 1
+    style_epilogue.demod_launches += 1
+    return x
+
+
+def _check_style_demod(x, demod, mod, fir_src, taps, rgb, rgb_w, rgb_bias, rgb_prev) -> None:
+    B, H, W, C = x.shape
+    _check_rows("demod", demod, x)
+    if mod is not None:
+        _check_rows("mod", mod, x)
+    if (fir_src is None) == (rgb is None):
+        raise ValueError("style_demod_epilogue: it takes fir_src or rgb, one of them")
+    if taps is None or len(taps) != 4:
+        raise ValueError("style_demod_epilogue: the FIR and toRGB take 4 taps")
+    if fir_src is not None:
+        if (fir_src.shape != (B, H + 1, W + 1, C) or fir_src.dtype != x.dtype
+                or not fir_src.is_contiguous() or fir_src.device != x.device or H % FIR_ROWS
+                or mod is None or rgb_w is not None or rgb_prev is not None):
+            raise ValueError(f"style_demod_epilogue: fir_src must be contiguous {x.dtype} "
+                             f"{(B, H + 1, W + 1, C)} on {x.device}, H a multiple of "
+                             f"{FIR_ROWS}, with mod and without rgb_w or rgb_prev")
+        return
+    want = {"rgb": (rgb, (B, H, W, 3)), "rgb_w": (rgb_w, (B, 3, C))}
+    if rgb_prev is not None:
+        want["rgb_prev"] = (rgb_prev, (B, H // 2, W // 2, 3))
+    for name, (t, shape) in want.items():
+        if (t is None or t.shape != shape or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.device != x.device):
+            raise ValueError(f"style_demod_epilogue: {name} must be contiguous float32 {shape} "
+                             f"on {x.device}")
+    if rgb_bias is None or len(rgb_bias) != 3 or (rgb_prev is not None and (H % 2 or W % 2)):
+        raise ValueError("style_demod_epilogue: toRGB takes 3 bias values, and an even size "
+                         "with rgb_prev")
+
+
+style_epilogue.launches = style_epilogue.demod_launches = 0

@@ -57,6 +57,25 @@ two hand-written kernels: the noise draw, then noise, bias and leaky ReLU in
 one in-place pass (``cuda_kernels.style_epilogue``, span
 ``s2p.style.noise``); then the MAT-norm kernel with the layer's γ‖β slice
 of the styles at pixel stride 0.
+
+A ``StyleGAN2Generator`` renders through the same ``synthesize_style_fast``
+(dispatched on the generator's family) and ``fuse_fast_params``. Its
+modulated convs run in the ``fused_modconv=False`` form, x·s, a conv with
+the shared weight, then ·d, so that no per-image weight is built: the 17
+convs' and 9 toRGBs' affines, ψ and ``dlatent_avg`` fold into ONE f32 style
+GEMM (the mapping's √2 into its weights, which the leaky ReLU lets through);
+every conv's Σ_k w² is folded at fuse time, so that all 17 layers' d come
+from s² in ONE batched GEMM a pass (span ``s2p.style.modulate``, with the
+constant's scaling by its style). Each layer then runs its conv (an up
+layer's stride-2 transposed conv with the kernel flipped, span
+``s2p.gen.upsample``) and ONE launch of the epilogue kernel's demodulating
+variant (``cuda_kernels.style_demod_epilogue``, span ``s2p.style.noise``,
+after the noise draw): ·d, noise, bias and the √2-gained leaky ReLU, the
+next conv's input scaling by its style, an up layer's [1, 3, 3, 1] FIR
+read from the transposed conv's output, and the skip generator's toRGB
+with the previous RGB sum upsampled (its per-image weights made in span
+``s2p.style.skip``) ride in it. The RGB sum stays float32 and is rounded
+once to the generator's type.
 """
 
 from __future__ import annotations
@@ -66,13 +85,14 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from s2p_tpu_torch.gan.cuda_kernels import hidden_maps, style_epilogue
+from s2p_tpu_torch.gan.cuda_kernels import hidden_maps, style_demod_epilogue, style_epilogue
 from s2p_tpu_torch.gan.generator import (CL, S2PGenerator, SPADEGenerator, label_onehot,
                                          mat_norm_nchw, spade_norm_nchw, upsample_nearest)
 from s2p_tpu_torch.gan.rollout import generate_rollout
-from s2p_tpu_torch.gan.stylegan import (GAIN, LRELU, StyleGANGenerator, adain_nchw, blur_kernel,
-                                        fused_up_kernel, layer_res, noise_map, pixel_norm,
-                                        runtime_coef)
+from s2p_tpu_torch.gan.stylegan import (GAIN, LRELU, StyleBase, StyleGANGenerator, adain_nchw,
+                                        blur_kernel, fused_up_kernel, layer_res, noise_map,
+                                        pixel_norm, runtime_coef)
+from s2p_tpu_torch.gan.stylegan2 import DEMOD_EPS, UP, StyleGAN2Generator, fir_taps, up_weight
 from s2p_tpu_torch.utils.profiling import annotate
 
 Params = Dict[str, Any]
@@ -195,7 +215,7 @@ def _fuse_block(block: torch.nn.Module, cond_weight: Callable[[torch.Tensor], to
 
 
 @torch.no_grad()
-def fuse_fast_params(gen: S2PGenerator | SPADEGenerator | StyleGANGenerator,
+def fuse_fast_params(gen: S2PGenerator | SPADEGenerator | StyleBase,
                      gb_int8: bool = False) -> Params:
     """Precompute, once and outside the rollout loop, the fused operands the
     fast path reads beside ``gen``'s own layers: per block ``_fuse_block``'s.
@@ -214,12 +234,13 @@ def fuse_fast_params(gen: S2PGenerator | SPADEGenerator | StyleGANGenerator,
     weights' extra inputs (``shared_cat``'s and ``fc``'s) are zero, so the
     sums are unchanged. It runs in float only.
 
-    A ``StyleGANGenerator``'s are ``_fuse_style``'s (float only too)."""
-    if isinstance(gen, StyleGANGenerator):
+    A ``StyleGANGenerator``'s are ``_fuse_style``'s, a
+    ``StyleGAN2Generator``'s ``_fuse_style2``'s (float only too)."""
+    if isinstance(gen, StyleBase):
         if gb_int8:
             raise ValueError("the StyleGAN fast path runs in float only")
         with annotate("s2p.fast.fuse"):
-            return _fuse_style(gen)
+            return _fuse_style2(gen) if isinstance(gen, StyleGAN2Generator) else _fuse_style(gen)
     if isinstance(gen, SPADEGenerator):
         if gb_int8:
             raise ValueError("the SPADE fast path runs in float only")
@@ -447,7 +468,44 @@ def synthesize_fast(gen: SPADEGenerator, label_ids: torch.Tensor,
         return x.permute(0, 2, 3, 1)
 
 
-# -- StyleGAN ----------------------------------------------------------------------
+# -- StyleGAN (and what StyleGAN2 shares) ----------------------------------------------
+
+def _fuse_mapping(gen: StyleBase) -> list:
+    """Each mapping layer's scaled weight ``[in, out]`` and bias, f32, with
+    the gain after the activation folded in (the leaky ReLU commutes with a
+    positive factor: ``lrelu(x)·g = lrelu(x·g)``), so that both families run
+    ``lrelu(w·W + b)``."""
+    out = []
+    for d in gen.G_mapping.children():
+        w_gain, act_gain = d.gains
+        w = d.weight.float() * runtime_coef(d.weight.shape, w_gain, d.lrmul) * act_gain
+        out.append((w.t().contiguous(), d.bias.float() * d.lrmul * act_gain))
+    return out
+
+
+def _fold_affines(gen: StyleBase, affines) -> Params:
+    """The style affines ``(A [N, dlatent], b [N], dlatent index)`` (f32, at
+    run-time scale) with ψ_i and ``dlatent_avg`` folded (``A_i·lerp(avg, w,
+    ψ_i) + b_i = (ψ_i·A_i)·w + (b_i + (1 − ψ_i)·A_i·avg)``) into ONE GEMM's
+    operands: ``weight`` ``[dlatent, ΣN]``, ``bias`` ``[ΣN]``."""
+    avg = gen.dlatent_avg.float()
+    a_w, a_b = [], []
+    for A, b, i in affines:
+        psi = gen.psi(i)
+        a_w.append(psi * A)
+        a_b.append(b + (1.0 - psi) * (A @ avg))
+    return dict(weight=torch.cat(a_w).t().contiguous(), bias=torch.cat(a_b))
+
+
+def _map_latents(params: Params, z: torch.Tensor) -> torch.Tensor:
+    """Pixel norm, the mapping and the one style GEMM, in f32: z → the
+    styles ``[B, ΣN]``."""
+    w = pixel_norm(z.float())
+    for weight, bias in params["mapping"]:
+        w = F.leaky_relu(torch.addmm(bias, w, weight), LRELU)
+    st = params["style"]
+    return torch.addmm(st["bias"], w, st["weight"])
+
 
 def _fuse_style(gen: StyleGANGenerator) -> Params:
     """StyleGAN's fused operands: ``mapping``, each dense layer's scaled
@@ -462,16 +520,11 @@ def _fuse_style(gen: StyleGANGenerator) -> Params:
     layers, specs = gen.layers(), gen.layer_specs
     dtype = layers[1].weight.dtype
     cast = lambda t: _cl(t.to(dtype)) if t.dim() == 4 else t.to(dtype)
-    mapping = [((d.weight.float() * runtime_coef(d.weight.shape, GAIN, d.lrmul)).t().contiguous(),
-                d.bias.float() * d.lrmul) for d in gen.G_mapping.children()]
-    avg = gen.dlatent_avg.float()
-    a_w, a_b, fused, off = [], [], [], 0
+    affines, fused, off = [], [], 0
     for i, (layer, (_, _, kind, _, c_out)) in enumerate(zip(layers, specs)):
         sm = layer.StyleMod
         A = sm.weight.float() * runtime_coef(sm.weight.shape, 1.0)  # [2C, dlatent]
-        psi = gen.psi(i)
-        a_w.append(psi * A)
-        a_b.append(sm.bias.float() + (1.0 - psi) * (A @ avg))
+        affines.append((A, sm.bias.float(), i))
         lp: Params = dict(kind=kind, style=(off, c_out),
                           noise=layer.Noise.weight.to(dtype).contiguous(),
                           bias=layer.bias.to(dtype).contiguous())
@@ -487,8 +540,7 @@ def _fuse_style(gen: StyleGANGenerator) -> Params:
         fused.append(lp)
     rgb = gen.G_synthesis.ToRGB_lod0
     return dict(
-        mapping=mapping,
-        style=dict(weight=torch.cat(a_w).t().contiguous(), bias=torch.cat(a_b)),
+        mapping=_fuse_mapping(gen), style=_fold_affines(gen, affines),
         blocks=[fused[i:i + 2] for i in range(0, len(fused), 2)],
         torgb=dict(weight=cast(rgb.weight.float() * runtime_coef(rgb.weight.shape, 1.0)),
                    bias=rgb.bias.to(dtype)),
@@ -519,31 +571,36 @@ def _style_layer(x: torch.Tensor, lp: Params, styles: torch.Tensor, layer: int,
 
 
 @torch.no_grad()
-def synthesize_style_fast(gen: StyleGANGenerator, z: torch.Tensor,
+def synthesize_style_fast(gen: StyleBase, z: torch.Tensor,
                           noise_gen: Optional[torch.Generator] = None,
                           params: Optional[Params] = None) -> torch.Tensor:
-    """StyleGAN's fast path: latents ``[B, latent_size]`` → frames ``[B, R,
-    R, num_channels]`` (NHWC, channels_last underneath), ``gen(z,
-    noise_gen)`` up to float re-association, with the same noise: each
-    layer's map is drawn from ``noise_gen`` in layer order. ``params`` =
-    ``fuse_fast_params(gen)``, fused here when not given. The mapping (pixel
-    norm, 8 dense layers) and ONE style GEMM run in f32 (``s2p.style.mapping``);
-    then per resolution (``s2p.gen.block_<i>``) two layers of
-    ``_style_layer``; then toRGB (``s2p.gen.head``)."""
-    if not isinstance(gen, StyleGANGenerator):
-        raise TypeError(f"synthesize_style_fast takes a StyleGANGenerator, not "
-                        f"{type(gen).__name__}")
+    """The style families' fast path, StyleGAN's or StyleGAN2's by the
+    generator's class: latents ``[B, latent_size]`` → frames ``[B, R, R,
+    num_channels]`` (NHWC), ``gen(z, noise_gen)`` up to float
+    re-association, with the same noise: each layer's map is drawn from
+    ``noise_gen`` in layer order. ``params`` = ``fuse_fast_params(gen)``,
+    fused here when not given. Both open ``s2p.gen.forward`` and run the
+    mapping (pixel norm, 8 dense layers) and ONE style GEMM in f32
+    (``s2p.style.mapping``). StyleGAN: per resolution (``s2p.gen.block_<i>``)
+    two layers of ``_style_layer`` (``s2p.gen.upsample``,
+    ``s2p.style.noise``, ``s2p.style.adain``), then toRGB
+    (``s2p.gen.head``). StyleGAN2: every d in one batched GEMM
+    (``s2p.style.modulate``), then per resolution (``s2p.gen.block_<i>``)
+    its conv layers (``_style2_layer``: ``s2p.gen.upsample``,
+    ``s2p.style.noise``) with the toRGB's weights made in
+    ``s2p.style.skip``."""
+    if not isinstance(gen, StyleBase):
+        raise TypeError(f"synthesize_style_fast takes a StyleGANGenerator or a "
+                        f"StyleGAN2Generator, not {type(gen).__name__}")
     params = params or fuse_fast_params(gen)
     if z.dim() != 2 or z.shape[1] != params["latent_size"]:
         raise ValueError(f"latents {tuple(z.shape)}: the generator takes [B, "
                          f"{params['latent_size']}]")
     with annotate("s2p.gen.forward"):
+        if isinstance(gen, StyleGAN2Generator):
+            return _synthesize_style2(params, z, noise_gen)
         with annotate("s2p.style.mapping"):
-            w = pixel_norm(z.float())
-            for weight, bias in params["mapping"]:
-                w = F.leaky_relu(torch.addmm(bias, w, weight), LRELU)
-            st = params["style"]
-            styles = torch.addmm(st["bias"], w, st["weight"]).to(params["dtype"])
+            styles = _map_latents(params, z).to(params["dtype"])
         x = None
         for i, pair in enumerate(params["blocks"]):
             with annotate(f"s2p.gen.block_{i}"):
@@ -553,3 +610,116 @@ def synthesize_style_fast(gen: StyleGANGenerator, z: torch.Tensor,
             rgb = params["torgb"]
             x = F.conv2d(x, rgb["weight"], rgb["bias"])
         return x.permute(0, 2, 3, 1)
+
+
+# -- StyleGAN2 ---------------------------------------------------------------------
+
+def _fuse_style2(gen: StyleGAN2Generator) -> Params:
+    """StyleGAN2's fused operands: ``mapping`` (the √2 folded in); ``style``,
+    the 17 convs' and 9 toRGBs' affines with ψ, ``dlatent_avg`` and the
+    style's ``+ 1`` folded into one GEMM: the convs' styles first, each
+    padded with zero columns to ``width`` (= the widest input), so that they
+    read as ``[B, 17, width]``, then each toRGB's; ``demod``, every conv's
+    Σ over taps of its squared scaled weight ``[17, width, width]`` (``[i,
+    o]``, zero-padded), so that ``rsqrt(s² @ demod + 1e-8)`` is every
+    layer's d in one batched GEMM; ``const``; per conv layer (``layers``)
+    its ``kind``, ``channels``, ``weight`` (a 3×3 kernel, or an up layer's
+    flipped transposed kernel ``[in, out, 3, 3]``), ``noise`` (the scalar
+    strength as ``[C]``) and ``bias``; per resolution (``torgb``) the
+    toRGB's f32 weight ``[3, I]``, its ``bias`` (3 host floats, which the
+    kernel takes by value) and ``style`` slice; ``taps``, the FIR's
+    separable taps (the up layers' FIR and the RGB upsample)."""
+    layers, rgbs = gen.layers(), gen.torgbs()
+    dtype = layers[0].weight.dtype
+    width = max(layer.weight.shape[1] for layer in layers)
+    affines, fused, demod = [], [], []
+    for i, layer in enumerate(layers):
+        A = layer.mod_weight.float() * runtime_coef(layer.mod_weight.shape, 1.0)  # [I, D]
+        pad = width - A.shape[0]
+        affines.append((F.pad(A, (0, 0, 0, pad)), F.pad(layer.mod_bias.float() + 1, (0, pad)), i))
+        w = layer.weight.float() * runtime_coef(layer.weight.shape, 1.0)  # [O, I, 3, 3]
+        O, I = w.shape[:2]
+        demod.append(F.pad(w.square().sum((2, 3)).t(), (0, width - O, 0, width - I)))
+        lp: Params = dict(kind="up" if layer.up else "conv", channels=O,
+                          noise=layer.noise_strength.to(dtype).expand(O).contiguous(),
+                          bias=layer.bias.to(dtype).contiguous())
+        lp["weight"] = _cl((up_weight(w) if layer.up else w).to(dtype))
+
+        fused.append(lp)
+    torgb, off = [], len(layers) * width
+    for r, rgb in enumerate(rgbs):
+        A = rgb.mod_weight.float() * runtime_coef(rgb.mod_weight.shape, 1.0)
+        affines.append((A, rgb.mod_bias.float() + 1, 2 * r + 1))
+        I = A.shape[0]
+        w = rgb.weight.float() * runtime_coef(rgb.weight.shape, 1.0)  # [3, I, 1, 1]
+        torgb.append(dict(weight=w[:, :, 0, 0].contiguous(),
+                          bias=tuple(rgb.bias.float().tolist()), style=(off, I)))
+        off += I
+    return dict(
+        mapping=_fuse_mapping(gen), style=_fold_affines(gen, affines), width=width,
+        demod=torch.stack(demod), const=gen.G_synthesis.get_submodule("4x4.Const").const.float(),
+        layers=fused, torgb=torgb, taps=fir_taps(gen.resample_kernel), dtype=dtype,
+        latent_size=gen.latent_size)
+
+
+def _style2_layer(x: torch.Tensor, lp: Params, layer: int, s: torch.Tensor, d: torch.Tensor,
+                  noise_gen: Optional[torch.Generator], taps, skip: Optional[Params]) -> tuple:
+    """StyleGAN2's conv layer ``layer`` on the fast path, x its input already
+    scaled by its style: the shared-weight conv (an up layer's transposed
+    conv), then the demodulating epilogue kernel, which scales the output by
+    the next conv's style ``s[layer + 1]`` where there is one, reads the FIR
+    of an up layer's transposed conv output, and, given ``skip`` (the
+    toRGB's per-image weights, bias and the previous RGB sum), adds the
+    layer's toRGB to the upsampled sum. Returns (the next conv's input or
+    None after the last layer, the new RGB sum or None)."""
+    B, C = x.shape[0], lp["channels"]
+    up = lp["kind"] == "up"
+    src = None
+    if up:
+        with annotate("s2p.gen.upsample"):
+            src = _cl(F.conv_transpose2d(x, lp["weight"], None, stride=UP))
+        x = torch.empty(B, C, src.shape[2] - 1, src.shape[3] - 1, dtype=src.dtype,
+                        device=src.device, memory_format=CL)
+    else:
+        x = _cl(F.conv2d(x, lp["weight"], None, padding=1))
+    y = None
+    if skip is not None:
+        y = torch.empty(B, x.shape[2], x.shape[3], 3, device=x.device)
+        skip = dict(skip, rgb=y)
+    with annotate("s2p.style.noise"):
+        n = noise_map(B, layer, noise_gen, x.device, StyleGAN2Generator.FIRST_LAYERS)
+        nxt = s[layer + 1, :, :C] if layer + 1 < len(s) else None
+        style_demod_epilogue(x.permute(0, 2, 3, 1), n.view(B, *n.shape[2:]), lp["noise"],
+                             lp["bias"], d[layer, :, :C], LRELU, GAIN, taps=taps, mod=nxt,
+                             fir_src=None if src is None else src.permute(0, 2, 3, 1),
+                             **(skip or {}))
+    return (None if nxt is None else x), y
+
+
+def _synthesize_style2(params: Params, z: torch.Tensor,
+                       noise_gen: Optional[torch.Generator]) -> torch.Tensor:
+    """StyleGAN2's pass inside ``synthesize_style_fast``'s forward span."""
+    B, dtype, width = z.shape[0], params["dtype"], params["width"]
+    L = len(params["layers"])
+    with annotate("s2p.style.mapping"):
+        styles = _map_latents(params, z)
+    with annotate("s2p.style.modulate"):
+        s = styles[:, :L * width].view(B, L, width).transpose(0, 1).contiguous()
+        d = torch.bmm(s.square(), params["demod"]).add_(DEMOD_EPS).rsqrt_()
+        const = params["const"]
+        x = _cl((const * s[0, :, :const.shape[1], None, None]).to(dtype))
+    y = None
+    for block, rgb in enumerate(params["torgb"]):
+        with annotate(f"s2p.gen.block_{block}"):
+            ids = [0] if block == 0 else [2 * block - 1, 2 * block]
+            for i in ids:
+                skip = None
+                if i == ids[-1]:  # the block's last conv feeds its toRGB
+                    with annotate("s2p.style.skip"):
+                        off, I = rgb["style"]
+                        w_rgb = styles[:, None, off:off + I] * rgb["weight"]  # [B, 3, I]
+                        skip = dict(rgb_w=w_rgb, rgb_bias=rgb["bias"], rgb_prev=y)
+                x, y_new = _style2_layer(x, params["layers"][i], i, s, d, noise_gen,
+                                         params["taps"], skip)
+                y = y_new if skip is not None else y
+    return y.to(dtype)

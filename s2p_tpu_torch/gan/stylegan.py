@@ -43,6 +43,15 @@ truncation), ``s2p.gen.block_<i>`` (resolution i, 0 = 4²), inside it
 ``s2p.gen.upsample`` (the up-conv and blur), ``s2p.style.noise`` (the noise
 draw, bias and leaky ReLU) and ``s2p.style.adain`` (the kernel), and
 ``s2p.gen.head`` (toRGB).
+
+The second style family, StyleGAN2 (``stylegan2.StyleGAN2Generator``),
+shares ``StyleBase`` (the mapping, the truncation, ``dlatent_avg``),
+``Dense`` (with its He gain after the activation: ``act_gain``),
+``runtime_coef``, ``pixel_norm``, ``noise_map`` and ``layer_res`` (one layer
+at 4²: ``first_layers``) and ``blur_kernel`` (its FIR's gain 4: ``gain``);
+its spans are ``s2p.gen.forward``, ``s2p.style.mapping``,
+``s2p.gen.block_<i>``, ``s2p.gen.upsample``, ``s2p.style.noise``,
+``s2p.style.modulate`` and ``s2p.style.skip`` (its module docstring).
 """
 
 from __future__ import annotations
@@ -71,16 +80,20 @@ def runtime_coef(shape: Sequence[int], gain: float, lrmul: float = 1.0) -> float
     return gain / math.sqrt(math.prod(shape[1:])) * lrmul
 
 
-def layer_res(layer: int) -> int:
-    """The resolution of synthesis layer ``layer``: 4, 4, 8, 8, 16, …"""
-    return 2 ** (layer // 2 + 2)
+def layer_res(layer: int, first_layers: int = 2) -> int:
+    """The resolution of synthesis layer ``layer`` when ``first_layers``
+    layers run at 4² and two at each resolution above: StyleGAN's 4, 4, 8,
+    8, 16, … (the constant's and the conv's epilogues at 4²: 2), StyleGAN2's
+    4, 8, 8, 16, … (the conv's alone: 1)."""
+    return 2 ** ((layer + 6 - first_layers) // 2)
 
 
 def noise_map(batch: int, layer: int, generator: Optional[torch.Generator] = None,
-              device=None) -> torch.Tensor:
-    """Layer ``layer``'s noise ``[B, 1, r, r]``, float32 standard normal,
-    drawn from ``generator`` (its device's default generator when None)."""
-    r = layer_res(layer)
+              device=None, first_layers: int = 2) -> torch.Tensor:
+    """Layer ``layer``'s noise ``[B, 1, r, r]`` (r = ``layer_res(layer,
+    first_layers)``), float32 standard normal, drawn from ``generator`` (its
+    device's default generator when None)."""
+    r = layer_res(layer, first_layers)
     return torch.randn(batch, 1, r, r, generator=generator, device=device)
 
 
@@ -97,12 +110,13 @@ def fused_up_kernel(weight: torch.Tensor) -> torch.Tensor:
 
 
 def blur_kernel(channels: int, taps: Sequence[int], dtype=torch.float32,
-                device=None) -> torch.Tensor:
+                device=None, gain: float = 1.0) -> torch.Tensor:
     """``_blur2d``'s depthwise filter ``[C, 1, k, k]``: the outer product of
-    ``taps`` with itself, normalised to sum 1."""
+    ``taps`` with itself, normalised to sum 1, times ``gain`` (StyleGAN2's
+    upsampling FIR: 4)."""
     f = torch.tensor(taps, dtype=torch.float64)
     f = torch.outer(f, f)
-    f = (f / f.sum()).to(dtype)
+    f = (f / f.sum() * gain).to(dtype)
     return f.expand(channels, 1, *f.shape).contiguous().to(device)
 
 
@@ -146,17 +160,28 @@ class StyleMod(nn.Module):
 
 
 class Dense(nn.Module):
-    """A mapping layer (``G_mapping/Dense{i}``): equalized-lr dense with lrmul."""
+    """A mapping layer (``G_mapping/Dense{i}``): equalized-lr dense with lrmul
+    and the leaky ReLU. The He gain √2 sits in the weight's scale (StyleGAN's
+    ``dense(gain=sqrt(2))``), or with ``act_gain`` after the activation
+    (StyleGAN2's ``apply_bias_act(act='lrelu')``: weight gain 1, then
+    ``lrelu(x + b)·√2``); the two differ by how the bias is scaled."""
 
-    def __init__(self, c_in: int, c_out: int, lrmul: float):
+    def __init__(self, c_in: int, c_out: int, lrmul: float, act_gain: bool = False):
         super().__init__()
-        self.lrmul = lrmul
+        self.lrmul, self.act_gain = lrmul, act_gain
         self.weight = nn.Parameter(torch.empty(c_out, c_in))
         self.bias = nn.Parameter(torch.zeros(c_out))
 
+    @property
+    def gains(self) -> Tuple[float, float]:
+        """(the weight's He gain, the gain after the activation)."""
+        return (1.0, GAIN) if self.act_gain else (GAIN, 1.0)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight * runtime_coef(self.weight.shape, GAIN, self.lrmul)
-        return F.leaky_relu(F.linear(x, w, self.bias * self.lrmul), LRELU)
+        w_gain, act_gain = self.gains
+        w = self.weight * runtime_coef(self.weight.shape, w_gain, self.lrmul)
+        x = F.leaky_relu(F.linear(x, w, self.bias * self.lrmul), LRELU)
+        return x * act_gain if self.act_gain else x
 
 
 class SynthesisLayer(nn.Module):
@@ -191,7 +216,88 @@ class ToRGB(nn.Module):
         return F.conv2d(x, self.weight * runtime_coef(self.weight.shape, 1.0), self.bias)
 
 
-class StyleGANGenerator(nn.Module):
+class StyleBase(nn.Module):
+    """What StyleGAN and StyleGAN2 share at inference: the options of the
+    mapping and of the feature-map widths, ``G_mapping`` (``mapping_layers``
+    ``Dense`` layers, ``act_gain`` as ``Dense`` takes it), the truncation
+    toward ``dlatent_avg`` (ψ on the layers below ``truncation_cutoff``,
+    every layer when it is None) and ``dlatent_avg`` itself, which stays
+    float32 whatever type the module is cast to, as a bf16 deployment keeps
+    such a statistic. A subclass builds ``G_synthesis`` between
+    ``_build_mapping`` and ``_finish_init``."""
+
+    def __init__(self, resolution: int, latent_size: int, dlatent_size: int,
+                 mapping_layers: int, mapping_fmaps: int, mapping_lrmul: float,
+                 fmap_base: int, fmap_decay: float, fmap_max: int, truncation_psi: float,
+                 truncation_cutoff: Optional[int]):
+        super().__init__()
+        log2 = int(round(math.log2(resolution)))
+        if resolution != 2 ** log2 or resolution < 8:
+            raise ValueError(f"resolution {resolution}: a power of two, at least 8")
+        self.resolution, self.latent_size, self.dlatent_size = resolution, latent_size, dlatent_size
+        self.fmap_base, self.fmap_decay, self.fmap_max = fmap_base, fmap_decay, fmap_max
+        self.truncation_psi, self.truncation_cutoff = truncation_psi, truncation_cutoff
+        self._mapping = (mapping_layers, mapping_fmaps, mapping_lrmul)
+
+    @property
+    def log2_res(self) -> int:
+        return int(round(math.log2(self.resolution)))
+
+    def _build_mapping(self, act_gain: bool) -> None:
+        layers, fmaps, lrmul = self._mapping
+        mapping = nn.Module()
+        for i in range(layers):
+            c_in = self.latent_size if i == 0 else fmaps
+            c_out = self.dlatent_size if i == layers - 1 else fmaps
+            mapping.add_module(f"Dense{i}", Dense(c_in, c_out, lrmul, act_gain))
+        self.G_mapping = mapping
+
+    def _finish_init(self) -> None:
+        """Register ``dlatent_avg``, draw every weight N(0, 1/lrmul) (as
+        use_wscale's init draws it) and put the convs in channels_last."""
+        self.register_buffer("dlatent_avg", torch.zeros(self.dlatent_size))
+        lrmul = self._mapping[2]
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                if "weight" in name.rsplit(".", 1)[-1] and p.dim() > 1:
+                    p.normal_(0.0, 1.0 / (lrmul if name.startswith("G_mapping.") else 1.0))
+        self.to(memory_format=CL)
+
+    def _apply(self, fn, recurse=True):
+        super()._apply(fn, recurse)
+        self._buffers["dlatent_avg"] = self._buffers["dlatent_avg"].float()
+        return self
+
+    def nf(self, stage: int) -> int:
+        return min(int(self.fmap_base / (2.0 ** (stage * self.fmap_decay))), self.fmap_max)
+
+    @property
+    def num_layers(self) -> int:
+        """The dlatents a pass reads: two a resolution."""
+        return 2 * self.log2_res - 2
+
+    def psi(self, layer: int) -> float:
+        """The truncation coefficient of dlatent ``layer``."""
+        cutoff = self.truncation_cutoff
+        return self.truncation_psi if cutoff is None or layer < cutoff else 1.0
+
+    def mapping(self, z: torch.Tensor) -> torch.Tensor:
+        """``G_mapping``: z ``[B, latent_size]`` → w ``[B, dlatent_size]``."""
+        x = pixel_norm(z)
+        for dense in self.G_mapping.children():
+            x = dense(x)
+        return x
+
+    def truncate(self, w: torch.Tensor) -> torch.Tensor:
+        """The truncation: ``lerp(dlatent_avg, w, ψ_i)`` per layer, ``[B,
+        num_layers, dlatent_size]``."""
+        coefs = torch.tensor([self.psi(i) for i in range(self.num_layers)], dtype=w.dtype,
+                             device=w.device)
+        avg = self.dlatent_avg.to(w.dtype)
+        return avg + (w[:, None] - avg) * coefs[None, :, None]
+
+
+class StyleGANGenerator(StyleBase):
     """``G_style`` (NVlabs/stylegan ``networks_stylegan.py``), at inference.
 
     The options are the official ones (``resolution``, ``latent_size``,
@@ -206,9 +312,7 @@ class StyleGANGenerator(nn.Module):
     init (weights N(0, 1/lrmul), biases and noise strengths 0, the constant
     1), drawn on ``device`` from its default generator, for
     ``load_state_dict`` to replace; conv weights are in channels_last
-    memory. ``dlatent_avg``
-    stays float32 whatever type the module is cast to, as a bf16
-    deployment keeps such a statistic."""
+    memory (``StyleBase`` keeps ``dlatent_avg`` float32)."""
 
     def __init__(self, resolution: int = 1024, latent_size: int = 512,
                  dlatent_size: int = 512, mapping_layers: int = 8, mapping_fmaps: int = 512,
@@ -216,48 +320,21 @@ class StyleGANGenerator(nn.Module):
                  fmap_decay: float = 1.0, fmap_max: int = 512, truncation_psi: float = 0.7,
                  truncation_cutoff: int = 8, blur_filter: Sequence[int] = (1, 2, 1),
                  device: str | torch.device = "cuda"):
-        super().__init__()
-        log2 = int(round(math.log2(resolution)))
-        if resolution != 2 ** log2 or resolution < 8:
-            raise ValueError(f"resolution {resolution}: a power of two, at least 8")
-        self.resolution, self.latent_size, self.dlatent_size = resolution, latent_size, dlatent_size
-        self.fmap_base, self.fmap_decay, self.fmap_max = fmap_base, fmap_decay, fmap_max
-        self.truncation_psi, self.truncation_cutoff = truncation_psi, truncation_cutoff
+        super().__init__(resolution, latent_size, dlatent_size, mapping_layers, mapping_fmaps,
+                         mapping_lrmul, fmap_base, fmap_decay, fmap_max, truncation_psi,
+                         truncation_cutoff)
         self.blur_filter = tuple(blur_filter)
-
         with torch.device(device):  # built and drawn on the device
-            mapping = nn.Module()
-            for i in range(mapping_layers):
-                c_in = latent_size if i == 0 else mapping_fmaps
-                c_out = dlatent_size if i == mapping_layers - 1 else mapping_fmaps
-                mapping.add_module(f"Dense{i}", Dense(c_in, c_out, mapping_lrmul))
-            self.G_mapping = mapping
+            self._build_mapping(act_gain=False)
             synthesis = nn.Module()
-            for res in range(2, log2 + 1):
+            for res in range(2, self.log2_res + 1):
                 synthesis.add_module(f"{2 ** res}x{2 ** res}", nn.Module())
             for scope, name, kind, c_in, c_out in self.layer_specs:
                 synthesis.get_submodule(scope).add_module(
                     name, SynthesisLayer(kind, c_in, c_out, dlatent_size))
-            synthesis.add_module("ToRGB_lod0", ToRGB(self.nf(log2 - 1), num_channels))
+            synthesis.add_module("ToRGB_lod0", ToRGB(self.nf(self.log2_res - 1), num_channels))
             self.G_synthesis = synthesis
-            self.register_buffer("dlatent_avg", torch.zeros(dlatent_size))
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                if name.endswith(".weight") and p.dim() > 1:  # N(0, 1/lrmul), as use_wscale draws
-                    p.normal_(0.0, 1.0 / (mapping_lrmul if name.startswith("G_mapping.") else 1.0))
-        self.to(memory_format=CL)
-
-    def _apply(self, fn, recurse=True):
-        super()._apply(fn, recurse)
-        self._buffers["dlatent_avg"] = self._buffers["dlatent_avg"].float()
-        return self
-
-    def nf(self, stage: int) -> int:
-        return min(int(self.fmap_base / (2.0 ** (stage * self.fmap_decay))), self.fmap_max)
-
-    @property
-    def num_layers(self) -> int:
-        return 2 * int(round(math.log2(self.resolution))) - 2
+            self._finish_init()
 
     @property
     def layer_specs(self) -> List[Tuple[str, str, str, int, int]]:
@@ -266,7 +343,7 @@ class StyleGANGenerator(nn.Module):
         ``{r}x{r}/Conv1`` per resolution."""
         out = [("4x4", "Const", "const", 0, self.nf(1)), ("4x4", "Conv", "conv", self.nf(1),
                                                           self.nf(1))]
-        for res in range(3, int(round(math.log2(self.resolution))) + 1):
+        for res in range(3, self.log2_res + 1):
             scope = f"{2 ** res}x{2 ** res}"
             out += [(scope, "Conv0_up", "up", self.nf(res - 2), self.nf(res - 1)),
                     (scope, "Conv1", "conv", self.nf(res - 1), self.nf(res - 1))]
@@ -279,25 +356,6 @@ class StyleGANGenerator(nn.Module):
     def fused(res: int) -> bool:
         """Whether the up-conv into ``res`` is the fused transposed conv."""
         return res >= FUSED_MIN_RES
-
-    def psi(self, layer: int) -> float:
-        """The truncation coefficient of synthesis layer ``layer``."""
-        return self.truncation_psi if layer < self.truncation_cutoff else 1.0
-
-    def mapping(self, z: torch.Tensor) -> torch.Tensor:
-        """``G_mapping``: z ``[B, latent_size]`` → w ``[B, dlatent_size]``."""
-        x = pixel_norm(z)
-        for dense in self.G_mapping.children():
-            x = dense(x)
-        return x
-
-    def truncate(self, w: torch.Tensor) -> torch.Tensor:
-        """``G_style``'s truncation: ``lerp(dlatent_avg, w, ψ_i)`` per layer,
-        ``[B, num_layers, dlatent_size]``."""
-        coefs = torch.tensor([self.psi(i) for i in range(self.num_layers)], dtype=w.dtype,
-                             device=w.device)
-        avg = self.dlatent_avg.to(w.dtype)
-        return avg + (w[:, None] - avg) * coefs[None, :, None]
 
     @torch.no_grad()
     def forward(self, z: torch.Tensor, noise_gen: Optional[torch.Generator] = None
