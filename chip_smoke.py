@@ -325,15 +325,25 @@ TP world's batch of 2·world, f32, forward.
     out the noise or the bias, or a wrong slope, fails the tolerance, which
     is checked on the plain version), one launch counted each, its device
     time beside its bytes-bound time (x read and written, the f32 noise),
-    the plain version's and the eager ops' it replaced; then
-    ``synthesize_style_fast`` at batch 32 in bf16 with the
+    the plain version's and the eager ops' it replaced; the fast path's
+    AdaIN in one pass over x (``phase_style_stats``): at the same 9 shapes
+    the epilogue's statistics variant against ``style_epilogue_plain``, its
+    partial statistics merged as the norm merges them against the f64 mean
+    and variance of what it stored, the norm with those statistics against
+    ``fused_mat_norm_plain``, each launch counted in ``stats_launches`` too;
+    the statistics of half the plane and of another image must each break
+    the norm's tolerance, and on an f32 plane of mean 1e3 and std 1 the
+    kernel's variance must hold where E[y²] − mean² must not; device time of
+    both beside their bounds and beside the norm on its own statistics;
+    then ``synthesize_style_fast`` at batch 32 in bf16 with the
     ``stylegan-ffhq1024-b32`` cell's weights: a pass must launch the
-    MAT-norm kernel 18 times, all style launches, and the epilogue kernel
-    18 times (counts reset just before), its device time, and its frames
-    must hold to the module path in f32 (TF32 off, the same noise; 18 and
-    18 launches too) within the cell's limits; one pass of the S2P fast and
-    module paths must launch the MAT-norm kernel with no style launch and
-    the epilogue kernel not at all.
+    MAT-norm kernel 18 times, all style and statistics launches, and the
+    epilogue kernel 18 times, all statistics launches (counts reset just
+    before), its device time, and its frames must hold to the module path
+    in f32 (TF32 off, the same noise; 18 and 18 launches too, no statistics
+    launch) within the cell's limits; one pass of the S2P fast and module
+    paths must launch the MAT-norm kernel with no style or statistics
+    launch and the epilogue kernel not at all.
 
 29. StyleGAN2 (a main path): the demodulating style-epilogue kernel
     against its plain version at the (r, C, mode) of each of its 17
@@ -1126,7 +1136,10 @@ def phase_ab(ck, other_dir: str, card: str) -> None:
     of the module path at batch 1 (f32), the forward (saving the statistics)
     and the backward at every shape of the training step (batch 16, 100px,
     γ and β separate, bf16 and f32), and ``spade_norm`` at the 18 shapes of
-    a GauGAN pass (batch 32, bf16 and f32). Each kernel runs without a bias
+    a GauGAN pass (batch 32, bf16 and f32), and where this checkout has
+    StyleGAN's statistics epilogue, at the 9 shapes of a StyleGAN pass (batch
+    32, bf16 and f32) the other side's AdaIN and epilogue against this side's
+    norm given the statistics and its statistics epilogue. Each kernel runs without a bias
     on both sides; where this checkout's wrappers take ``gb_bias``, the
     fast paths' shapes run again with it on this side (the other side
     without, as a checkout that adds the bias in a pass of its own runs
@@ -1213,6 +1226,34 @@ def phase_ab(ck, other_dir: str, card: str) -> None:
             if folds:
                 cases.append((f"spade {name}, bias folded here", f"{h}x{w} C={c}", n, make,
                               fold_spade))
+
+    if hasattr(ck, "style_epilogue_stats"):  # this side's StyleGAN AdaIN reads its x once
+        from portbench.counts import stylegan as style_counts
+        from s2p_tpu_torch.gan.stylegan import LRELU
+
+        other.load_style_epilogue_library()
+
+        def style_inputs(r, c, dtype):
+            g = torch.Generator(device="cuda").manual_seed(r + c)
+            x, noise, strength, bias, gamma, beta = style_stats_inputs(
+                STYLE_AB_BATCH, r, c, dtype, g)
+            with torch.no_grad():
+                stats = ck.style_epilogue_stats(x.clone(), noise, strength, bias, LRELU)
+            return x, noise, strength, bias, gamma, beta, stats
+
+        style_shapes = style_counts.norm_shapes(harness.load_cell(STYLEGAN_CELL).config["G"])
+        for dtype in (bf16, f32):
+            name = str(dtype).split(".")[-1]
+            for (r, c), n in sorted(style_shapes.items()):
+                make = lambda r=r, c=c, dtype=dtype: style_inputs(r, c, dtype)
+                cases.append((f"stylegan adain {name}, statistics given here", f"{r}x{r} C={c}", n,
+                              make, lambda m, t: (m.fused_mat_norm(
+                                  *t[:1], *t[4:6], STYLEGAN_EPS, stats=t[6]) if m is ck
+                                  else m.fused_mat_norm(*t[:1], *t[4:6], STYLEGAN_EPS))))
+                cases.append((f"stylegan epilogue {name}, statistics taken here",
+                              f"{r}x{r} C={c}", n, make,
+                              lambda m, t: (m.style_epilogue_stats if m is ck
+                                            else m.style_epilogue)(*t[:4], LRELU)))
 
     totals: dict = {}
     with torch.no_grad():
@@ -4104,12 +4145,14 @@ def phase_spade_path(ck, card: str) -> dict:
         synthesize_fast(gen, ids, params)  # builds the kernel and warms every shape
         torch.cuda.synchronize()
         ck.spade_norm.launches = ck.spade_norm.bias_launches = 0
+        reset_stats_counters(ck)
         frames = synthesize_fast(gen, ids, params)
         torch.cuda.synchronize()
         launches, bias_launches = ck.spade_norm.launches, ck.spade_norm.bias_launches
-        if launches != 18 or bias_launches != 18:
+        if launches != 18 or bias_launches != 18 or stats_counters(ck) != (0, 0):
             fail(f"synthesize_fast: {launches} spade_norm launches a pass, {bias_launches} "
-                 "with the γ‖β bias folded; not 18 and 18")
+                 f"with the γ‖β bias folded, stats launches {stats_counters(ck)}; not 18, 18 "
+                 "and (0, 0)")
         ms = time_ms(lambda: synthesize_fast(gen, ids, params), iters=10)
         tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
@@ -4139,7 +4182,12 @@ def phase_spade_path(ck, card: str) -> dict:
 
 
 STYLEGAN_CELL = "stylegan-ffhq1024-b32"  # the benchmark cell whose shapes, weights and limits are used
+STYLE_AB_BATCH = 32  # the cell's batch, for --ab
 STYLEGAN_EPS = 1e-8  # instance_norm's epsilon in networks_stylegan.py
+# the statistics epilogue's mean (÷ std) and variance (relative) against f64 over the stored
+# values: f32 sums of up to ~250 values a thread, then a tree and Chan's merge (~1e-6 seen
+# in the CPU tests' f32 planes)
+STATS_TOL = 1e-5
 
 
 def phase_style_adain(ck, card: str) -> dict:
@@ -4302,6 +4350,181 @@ def phase_style_epilogue(ck, card: str) -> dict:
     return dict(per_pass=per_pass, max_err=max_err)
 
 
+def style_stats_inputs(B, r, c, dtype, g, mean=0.5, std=2.0) -> tuple:
+    """x, noise, strength and bias of one StyleGAN layer's epilogue, x with a
+    ramp down the plane and an offset an image and channel (so that the
+    statistics of half the plane, or of another image, are not x's), and the
+    layer's style as γ and β at pixel stride 0."""
+    import torch
+
+    ramp = torch.linspace(-2, 2, r * r, device="cuda").view(1, r, r, 1)
+    offset = torch.randn(B, 1, 1, c, generator=g, device="cuda") * 2
+    x = (torch.randn(B, r, r, c, generator=g, device="cuda") * std + mean + ramp
+         + offset).to(dtype)
+    noise = torch.randn(B, r, r, generator=g, device="cuda")
+    strength, bias = (torch.randn(c, generator=g, device="cuda").to(dtype) for _ in range(2))
+    style = torch.randn(B, 2 * c, generator=g, device="cuda").to(dtype)
+    gamma = style[:, :c].view(B, 1, 1, c).expand(B, r, r, c)
+    beta = style[:, c:].view(B, 1, 1, c).expand(B, r, r, c)
+    return x, noise, strength, bias, gamma, beta
+
+
+def stats_gap(ck, stats, y) -> tuple:
+    """(the widest |mean − mean₆₄| ÷ std₆₄, the widest |var ÷ var₆₄ − 1|) of the
+    statistics ``stats`` of the stored values y against y's own, in f64."""
+    import torch
+
+    B, H, W, C = y.shape
+    mean, m2 = ck.merge_stats_plain(stats, H * W)
+    var64, mean64 = torch.var_mean(y.double().reshape(B, H * W, C), dim=1, unbiased=False)
+    return (((mean.double() - mean64).abs() / var64.sqrt()).max().item(),
+            ((m2.double() / (H * W) / var64) - 1).abs().max().item())
+
+
+def phase_style_stats(ck, card: str) -> dict:
+    """StyleGAN's fast-path AdaIN in one pass over x: at every (r, C) of a
+    pass (batch 32, bf16 and f32) the epilogue's statistics variant
+    (``style_epilogue_stats``) against ``style_epilogue_plain``, its partial
+    statistics merged as the norm merges them against the f64 mean and
+    variance of the values it stored (within ``STATS_TOL``), and the norm
+    with those statistics against ``fused_mat_norm_plain`` (the two-pass
+    statistics) on the same x; each launch counted in ``launches`` and
+    ``stats_launches``. Controls, each of which must break the norm's
+    tolerance at every shape: the given-statistics plain norm with the
+    statistics of half the plane and with another image's. On an f32 plane of
+    |mean| ≫ std (mean 1e3, std 1) the kernel's variance must stay within
+    ``STATS_TOL`` where E[y²] − mean² (unshifted, in f32) must not. Device
+    time of both kernels beside their bounds (``counts/stylegan.py``'s
+    ``launch_bytes`` and ``epilogue_bytes``) and beside the norm that takes
+    its own statistics, per resolution."""
+    import torch
+    from portbench import harness
+    from portbench.counts import stylegan as style_counts
+    from s2p_tpu_torch.gan.stylegan import LRELU
+
+    cell = harness.load_cell(STYLEGAN_CELL)
+    G, B = cell.config["G"], cell.traffic["batch"]
+    shapes = style_counts.norm_shapes(G)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    per_pass, per_shape, worst = {}, {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        totals = dict(epilogue_ms=0.0, epilogue_bound_ms=0.0, norm_ms=0.0, norm_bound_ms=0.0,
+                      own_stats_norm_ms=0.0)
+        worst[name] = dict(epilogue_err=0.0, norm_err=0.0, mean_gap=0.0, var_gap=0.0)
+        for (r, c), n in sorted(shapes.items()):
+            x, noise, strength, bias, gamma, beta = style_stats_inputs(B, r, c, dtype, g)
+            args = (noise, strength, bias, LRELU)
+            want = ck.style_epilogue_plain(x, *args).float()
+            off = lambda y, ref: ((y.float() - ref).abs() > tol + tol * ref.abs()).any().item()  # noqa: E731
+            y = x.clone()
+            before = (ck.style_epilogue.launches, ck.style_epilogue.stats_launches,
+                      ck.fused_mat_norm.launches, ck.fused_mat_norm.style_launches,
+                      ck.fused_mat_norm.stats_launches)
+            with torch.no_grad():
+                stats = ck.style_epilogue_stats(y, *args)
+                out = ck.fused_mat_norm(y, gamma, beta, eps=STYLEGAN_EPS, stats=stats)
+            torch.cuda.synchronize()
+            counted = tuple(a - b for a, b in zip(
+                (ck.style_epilogue.launches, ck.style_epilogue.stats_launches,
+                 ck.fused_mat_norm.launches, ck.fused_mat_norm.style_launches,
+                 ck.fused_mat_norm.stats_launches), before))
+            if counted != (1, 1, 1, 1, 1):
+                fail(f"the statistics epilogue and norm at {(B, r, r, c)} counted {counted} "
+                     "(epilogue launches, stats_launches; norm launches, style_launches, "
+                     "stats_launches), not 1 each")
+            e_err = (y.float() - want).abs().max().item()
+            if not torch.isfinite(y).all() or off(y, want):
+                fail(f"style_epilogue_stats vs plain at {name} {(B, r, r, c)}: max |err| {e_err:.3g}")
+            mean_gap, var_gap = stats_gap(ck, stats, y)
+            if not (mean_gap <= STATS_TOL and var_gap <= STATS_TOL):
+                fail(f"style_epilogue_stats' statistics at {name} {(B, r, r, c)}: mean off by "
+                     f"{mean_gap:.3g} std, variance by {var_gap:.3g} (relative), against f64 "
+                     f"(tolerance {STATS_TOL})")
+            del want
+            ref = ck.fused_mat_norm_plain(y, gamma, beta, eps=STYLEGAN_EPS).float()
+            n_err = (out.float() - ref).abs().max().item()
+            if not torch.isfinite(out).all() or off(out, ref):
+                fail(f"fused_mat_norm with stats vs plain at {name} {(B, r, r, c)}: max |err| "
+                     f"{n_err:.3g}")
+            half = y[:, :r // 2]  # its mean and variance in the slots of one range of r² pixels
+            mh, m2h = ck.merge_stats_plain(ck.style_stats_plain(half, 1), half[0, ..., 0].numel())
+            half_stats = torch.stack([mh, torch.zeros_like(mh), m2h * 2], dim=1)[:, None]
+            for what, bad in (("half the plane", half_stats),
+                              ("another image", stats.roll(1, dims=0).contiguous())):
+                got = ck.fused_mat_norm_stats_plain(y, gamma, beta, bad, STYLEGAN_EPS)
+                if not off(got, ref):
+                    fail(f"stats check at {name} {(B, r, r, c)}: the statistics of {what} pass "
+                         "the tolerance, so the comparison cannot catch them")
+                del got
+            del ref, out, half, half_stats
+            for k, v in (("epilogue_err", e_err), ("norm_err", n_err), ("mean_gap", mean_gap),
+                         ("var_gap", var_gap)):
+                worst[name][k] = max(worst[name][k], v)
+            with torch.no_grad():
+                e_ms = device_ms(lambda: ck.style_epilogue_stats(y, *args))
+                n_ms = device_ms(lambda: ck.fused_mat_norm(y, gamma, beta, eps=STYLEGAN_EPS,
+                                                           stats=stats))
+                own_ms = device_ms(lambda: ck.fused_mat_norm(y, gamma, beta, eps=STYLEGAN_EPS))
+            item = x.element_size()
+            e_bound = 1e3 * max(style_counts.epilogue_bytes(B, r, c, item) / HBM_BYTES_PER_S,
+                                style_counts.EPILOGUE_FLOPS_PER_ELEMENT * x.numel() / 67e12)
+            n_bound = 1e3 * max(style_counts.launch_bytes(B, r, c, item) / HBM_BYTES_PER_S,
+                                9 * x.numel() / 67e12)
+            plan = ck.adain_plan(B, r * r, c, dtype, True, ck._sm_count(0), stats.shape[1])
+            print(f"AdaIN stats {name} {(B, r, r, c)} x{n}/pass: epilogue {e_ms:.4f} ms (bound "
+                  f"{e_bound:.4f}, {100 * e_bound / e_ms:.1f}%; {stats.shape[1]} ranges an "
+                  f"image), norm {n_ms:.4f} ms (bound {n_bound:.4f}, {100 * n_bound / n_ms:.1f}%; "
+                  f"{'vec16' if plan.vec else 'scalar'} lanes={plan.lanes} grid={plan.grid}), "
+                  f"the norm on its own statistics {own_ms:.4f} ms ({own_ms / n_ms:.2f}x); max "
+                  f"|err| epilogue {e_err:.3g}, norm {n_err:.3g}; statistics off by {mean_gap:.2g} "
+                  f"std (mean), {var_gap:.2g} (variance)")
+            per_shape.setdefault(name, {})[f"{r}x{c}"] = dict(
+                epilogue_ms=e_ms, epilogue_bound_ms=e_bound, norm_ms=n_ms, norm_bound_ms=n_bound,
+                own_stats_norm_ms=own_ms, parts=stats.shape[1])
+            for k, v in (("epilogue_ms", e_ms), ("epilogue_bound_ms", e_bound), ("norm_ms", n_ms),
+                         ("norm_bound_ms", n_bound), ("own_stats_norm_ms", own_ms)):
+                totals[k] += n * v
+            del x, y, noise, stats, gamma, beta
+            torch.cuda.empty_cache()
+        per_pass[name] = dict(totals, epilogue_roofline_pct=100 * totals["epilogue_bound_ms"]
+                              / totals["epilogue_ms"],
+                              norm_roofline_pct=100 * totals["norm_bound_ms"] / totals["norm_ms"])
+        print(f"AdaIN stats {name}, one StyleGAN pass at batch {B} (18 + 18 launches): epilogue "
+              f"{totals['epilogue_ms']:.4f} ms against {totals['epilogue_bound_ms']:.4f} "
+              f"({per_pass[name]['epilogue_roofline_pct']:.1f}%), norm {totals['norm_ms']:.4f} ms "
+              f"against {totals['norm_bound_ms']:.4f} ({per_pass[name]['norm_roofline_pct']:.1f}%)"
+              f"; the norm on its own statistics {totals['own_stats_norm_ms']:.4f} ms")
+    # |mean| >> std in f32: the shifted sums keep the variance, E[y²] − mean² does not
+    far = {}
+    for r, c in ((64, 256), (1024, 16)):
+        x, noise, strength, bias, _, _ = style_stats_inputs(B, r, c, torch.float32, g,
+                                                            mean=1e3, std=1.0)
+        x -= torch.linspace(-2, 2, r * r, device="cuda").view(1, r, r, 1)  # no ramp here
+        with torch.no_grad():
+            stats = ck.style_epilogue_stats(x, noise, strength, bias, LRELU)
+        v = x.reshape(B, r * r, c)
+        s1, s2 = v.sum(dim=1), v.square().sum(dim=1)
+        naive = torch.stack([torch.zeros_like(s1), s1 / (r * r), s2 - s1 * (s1 / (r * r))], 1)
+        kernel_gap = stats_gap(ck, stats, x)
+        naive_gap = stats_gap(ck, naive[:, None], x)
+        print(f"AdaIN stats f32 {(B, r, r, c)}, mean {x.double().mean().item():.1f}: the kernel's "
+              f"variance off by {kernel_gap[1]:.3g}, E[y²] − mean² by {naive_gap[1]:.3g} "
+              f"(tolerance {STATS_TOL})")
+        if kernel_gap[1] > STATS_TOL or naive_gap[1] <= STATS_TOL:
+            fail(f"|mean| >> std at {(B, r, r, c)}: the kernel's variance off by {kernel_gap[1]:.3g}"
+                 f", E[y²] − mean² by {naive_gap[1]:.3g}; want <= and > {STATS_TOL}")
+        far[f"{r}x{c}"] = dict(kernel_var_gap=kernel_gap[1], naive_var_gap=naive_gap[1])
+        del x, noise, stats, v
+        torch.cuda.empty_cache()
+    print(f"AdaIN stats: max |err| epilogue f32 {worst['float32']['epilogue_err']:.3g} bf16 "
+          f"{worst['bfloat16']['epilogue_err']:.3g}, norm f32 {worst['float32']['norm_err']:.3g} "
+          f"bf16 {worst['bfloat16']['norm_err']:.3g} (rtol=atol {F32_TOL}, {BF16_TOL}); "
+          f"statistics within {max(w['var_gap'] for w in worst.values()):.3g} of f64; {card}")
+    return dict(per_pass=per_pass, per_shape=per_shape, worst=worst, far=far)
+
+
 def phase_style_path(ck, card: str) -> dict:
     """StyleGAN's main path, ``synthesize_style_fast``, at the
     ``stylegan-ffhq1024-b32`` cell's shapes and weights (FFHQ 1024², batch
@@ -4330,31 +4553,33 @@ def phase_style_path(ck, card: str) -> dict:
         run()  # warms every shape
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        reset_stats_counters(ck)
         ck.fused_mat_norm.launches = ck.fused_mat_norm.style_launches = 0
         ck.style_epilogue.launches = 0
         frames = run()
         torch.cuda.synchronize()
         launches, style = ck.fused_mat_norm.launches, ck.fused_mat_norm.style_launches
-        epilogues = ck.style_epilogue.launches
+        epilogues, stats = ck.style_epilogue.launches, stats_counters(ck)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        if (launches, style, epilogues) != (18, 18, 18):
+        if (launches, style, epilogues, *stats) != (18, 18, 18, 18, 18):
             fail(f"synthesize_style_fast: {launches} fused_mat_norm launches a pass, {style} "
-                 f"with styles at pixel stride 0, {epilogues} style_epilogue launches; not 18, "
-                 "18 and 18")
+                 f"with styles at pixel stride 0, {epilogues} style_epilogue launches, stats "
+                 f"launches {stats} (norm, epilogue); not 18, 18, 18 and (18, 18)")
         ms = time_ms(run, iters=10)
         tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
         gen32 = drv.build_generator(G, weights, ctx.device, torch.float32)
         ck.fused_mat_norm.launches = ck.fused_mat_norm.style_launches = 0
         ck.style_epilogue.launches = 0
+        reset_stats_counters(ck)
         module = gen32(z, noise_gen.manual_seed(7)).float()
         torch.cuda.synchronize()
         module_launches = (ck.fused_mat_norm.launches, ck.fused_mat_norm.style_launches,
-                           ck.style_epilogue.launches)
-        if module_launches != (18, 18, 18):
+                           ck.style_epilogue.launches, *stats_counters(ck))
+        if module_launches != (18, 18, 18, 0, 0):
             fail(f"the module path launched fused_mat_norm {module_launches[0]} times, "
                  f"{module_launches[1]} with styles, style_epilogue {module_launches[2]} "
-                 "times; not 18, 18 and 18")
+                 f"times, stats launches {module_launches[3:]}; not 18, 18, 18 and (0, 0)")
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     del gen32, params, gen
     err = frames.float() - module
@@ -4382,20 +4607,33 @@ def phase_style_path(ck, card: str) -> dict:
     prev = (torch.rand(8, H, H, 3, generator=g, device="cuda") * 2 - 1).bfloat16()
     ck.fused_mat_norm.launches = ck.fused_mat_norm.style_launches = 0
     ck.style_epilogue.launches = 0
+    reset_stats_counters(ck)
     with torch.no_grad():
         fast_apply(s2p_gen, fuse_fast_params(s2p_gen), state, prev)
         s2p_gen(state, prev)
     torch.cuda.synchronize()
     s2p_launches = (ck.fused_mat_norm.launches, ck.fused_mat_norm.style_launches,
-                    ck.style_epilogue.launches)
-    if s2p_launches != (26, 0, 0):
+                    ck.style_epilogue.launches, *stats_counters(ck))
+    if s2p_launches != (26, 0, 0, 0, 0):
         fail(f"the S2P fast and module paths: {s2p_launches[0]} launches, {s2p_launches[1]} "
-             f"style launches, {s2p_launches[2]} style_epilogue launches; not 26, 0 and 0")
+             f"style launches, {s2p_launches[2]} style_epilogue launches, stats launches "
+             f"{s2p_launches[3:]}; not 26, 0, 0 and (0, 0)")
     print(f"S2P fast + module path (64px, batch 8): {s2p_launches[0]} launches, "
           f"{s2p_launches[1]} style launches, {s2p_launches[2]} style_epilogue launches")
     return dict(launches=launches, style_launches=style, epilogue_launches=epilogues,
                 module_epilogue_launches=module_launches[2], s2p_epilogue_launches=s2p_launches[2],
+                stats_launches=dict(fast=stats, module=module_launches[3:],
+                                    s2p=s2p_launches[3:]),
                 ms=ms, peak_gb=peak_gb, gaps=gaps)
+
+
+def reset_stats_counters(ck) -> None:
+    ck.fused_mat_norm.stats_launches = ck.style_epilogue.stats_launches = 0
+
+
+def stats_counters(ck) -> tuple:
+    """(``fused_mat_norm.stats_launches``, ``style_epilogue.stats_launches``)."""
+    return ck.fused_mat_norm.stats_launches, ck.style_epilogue.stats_launches
 
 
 def style_epilogue_record(epilogue: dict, path: dict) -> dict:
@@ -4635,7 +4873,7 @@ def phase_style2_path(ck, card: str) -> dict:
     noise_gen = torch.Generator(device="cuda")
     run = lambda: synthesize_style_fast(gen, z, noise_gen.manual_seed(7), params)  # noqa: E731
     counters = lambda: (ck.fused_mat_norm.launches, ck.style_epilogue.launches,  # noqa: E731
-                        ck.style_epilogue.demod_launches)
+                        ck.style_epilogue.demod_launches, *stats_counters(ck))
     with torch.no_grad():
         run()  # warms every shape
         torch.cuda.synchronize()
@@ -4646,9 +4884,10 @@ def phase_style2_path(ck, card: str) -> dict:
         launches = tuple(a - b for a, b in zip(counters(), before))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         n = counts2.launches(G)  # 17 at 1024²
-        if launches != (0, n, n):
-            fail(f"synthesize_style_fast (StyleGAN2): {launches} fused_mat_norm, style_epilogue "
-                 f"and demodulating launches a pass; not 0, {n} and {n}")
+        if launches != (0, n, n, 0, 0):
+            fail(f"synthesize_style_fast (StyleGAN2): {launches} fused_mat_norm, style_epilogue, "
+                 f"demodulating and stats (norm, epilogue) launches a pass; not 0, {n}, {n}, 0 "
+                 "and 0")
         ms = time_ms(run, iters=10)
         tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
@@ -4664,7 +4903,8 @@ def phase_style2_path(ck, card: str) -> dict:
     del err, module, fast8
     torch.cuda.empty_cache()
     print(f"StyleGAN2 synthesize_style_fast, batch {len(z)} at {G['resolution']}² bf16: "
-          f"launches (fused_mat_norm, style_epilogue, demodulating) {launches} a pass; "
+          f"launches (fused_mat_norm, style_epilogue, demodulating, stats norm, stats "
+          f"epilogue) {launches} a pass; "
           f"{ms:.3f} ms a pass ({1e3 * len(z) / ms:.1f} frames/s, events, host included); peak "
           f"{peak_gb:.2f} GB; 8 rows against the module path in f32 (range {span:.4g}): " +
           ", ".join(f"{k} {v:.4g} (limit {cell.limits[k]})" for k, v in gaps.items()) +
@@ -4682,9 +4922,9 @@ def phase_style2_path(ck, card: str) -> dict:
         synthesize_style_fast(sg, z[:2], None)
     torch.cuda.synchronize()
     sg_launches = tuple(a - b for a, b in zip(counters(), before))
-    if sg_launches[1:] != (10, 0):
+    if sg_launches[1:] != (10, 0, 10, 10):
         fail(f"a StyleGAN pass at 64²: {sg_launches} launches; the epilogue 10 times, none "
-             "demodulating, expected")
+             "demodulating, 10 stats launches of each kernel, expected")
     print(f"StyleGAN fast path at 64² (10 layers): launches {sg_launches}")
     return dict(launches=launches, ms=ms, peak_gb=peak_gb, gaps=gaps,
                 stylegan_launches=sg_launches)
@@ -4960,8 +5200,9 @@ def main() -> None:
         return
     if args.stylegan:
         adain, epilogue = phase_style_adain(ck, card), phase_style_epilogue(ck, card)
+        stats = phase_style_stats(ck, card)
         path = phase_style_path(ck, card)
-        print(json.dumps(dict(kernel=adain, path=path)))
+        print(json.dumps(dict(kernel=adain, stats=stats, path=path)))
         print(json.dumps({"kernels": [style_epilogue_record(epilogue, path)]}))
         return
     if args.stylegan2:
@@ -5102,6 +5343,7 @@ def main() -> None:
     t0 = time.time()
     style_kernel = phase_style_adain(ck, card)
     style_epilogue = phase_style_epilogue(ck, card)
+    style_stats = phase_style_stats(ck, card)
     style_path = phase_style_path(ck, card)
     print(f"phase 28: {time.time() - t0:.1f} s")
 
@@ -5143,6 +5385,7 @@ def main() -> None:
         bridge_batch_plain_ms=stats["bridge"]["plain_ms"],
         bridge_batch_bound_ms=stats["bridge"]["bound_ms"],
         stylegan_pass=style_kernel["per_pass"]["bfloat16"],
+        stylegan_stats_pass=style_stats["per_pass"]["bfloat16"],
         per="ms/plain_ms/bound_ms: one 64px/ngf=64 generator step at batch 256 in bf16 "
             "(13 norms); bias_ms: the same with the gamma||beta bias folded (gb_bias), as "
             "the fast path runs it; train_step_*: the 13 norms of a 100px/ngf=64 train step at batch "
@@ -5152,7 +5395,10 @@ def main() -> None:
             "ms is not comparable with theirs; wall_ms: wall time per wrapper call in a "
             "loop, host included, as they timed ms; instance_norm_ms is F.instance_norm "
             "alone, a partial yardstick; stylegan_pass: the 18 AdaIN launches of one "
-            "StyleGAN FFHQ 1024² pass at batch 32 in bf16 (styles at pixel stride 0)",
+            "StyleGAN FFHQ 1024² pass at batch 32 in bf16 (styles at pixel stride 0); "
+            "stylegan_stats_pass: the same with the statistics given by the epilogue's "
+            "statistics variant (fused_mat_norm_kernel_stats, the fast path's), and that "
+            "epilogue's 18 launches",
     )
     bwd_record = dict(
         name="fused_mat_norm_bwd", route="cuda", source="s2p_tpu_torch/csrc/fused_mat_norm.cu",

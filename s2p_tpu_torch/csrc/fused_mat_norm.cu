@@ -94,6 +94,24 @@
 // of each cluster also writes the f32 per-(image, channel) mean and rstd,
 // [B, C], for the backward; on the inference path those pointers are null.
 //
+// Given statistics (fused_mat_norm_kernel_stats, StyleGAN's AdaIN on the fast
+// path). The epilogue kernel that writes x (style_epilogue.cu's statistics
+// variant) also writes, for each of its CTAs' contiguous pixel ranges, the
+// range's shift K, mean offset and M2 per channel. This kernel merges those
+// ranges of its (image, channel tile) by Chan's rule in range order, each
+// mean kept as K + offset so that the difference of two means loses nothing
+// to |mean| (d = (K_b - K_0) + (off_b - off)), then makes one pass: 16-byte
+// loads, gamma and beta one row of C values an image (pixel stride 0), out =
+// (x - mean) * (rstd * (1 + gamma)) + beta. It reads x once and writes out
+// once, which is the forward's bound, where the statistics passes above read
+// a 2^20-pixel plane three times. The CTA's threads merge a channel each into
+// shared memory (the first loads of x already in flight) and one barrier hands
+// the result to the rest; no cluster, no resident slice. The grid is like the
+// other one-pass kernels' (cuda_kernels.py::adain_plan): rows of `lanes`
+// threads over one image's pixels, the channel tiles in y, the images in z;
+// every CTA of an image reads all its ranges' slots, so the plan keeps ranges
+// x CTAs an image to a small share of x's bytes.
+//
 // Backward. The JAX package has no backward kernel (XLA differentiates the
 // plain norm there); the port's MAT norm on the card is this kernel, so its
 // gradient is one too. With xhat = (x - mean) * rstd and g = dy * (1 + gamma):
@@ -458,6 +476,87 @@ __global__ void __launch_bounds__(kThreads, 2) fused_mat_norm_bwd_kernel(const B
   if (cluster.num_blocks() > 1) cluster.sync();  // no CTA leaves while a partner may still read
 }
 
+template <typename T>
+struct StatsArgs {
+  const T* x;
+  const T* gamma;  // one row of C values an image, g_bstride apart
+  const T* beta;
+  const float* part;  // [B, parts, 3, C]: each pixel range's shift, mean offset and M2
+  T* out;
+  int hw, C, parts, lanes;
+  long long g_bstride, b_bstride;
+  float eps;
+};
+
+constexpr int kStatsUnroll = 4;  // pixels a thread loads before it stores
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads) fused_mat_norm_kernel_stats(const StatsArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x % a.lanes, row = threadIdx.x / a.lanes;
+  const int rows = blockDim.x / a.lanes, b = blockIdx.z;
+  const int c0 = blockIdx.y * a.lanes * V, c = c0 + lane * V;  // the tile's and the thread's
+  const bool active = c < a.C;  // the ragged last tile of the scalar path
+  const T* xb = a.x + (long long)b * a.hw * a.C + c;
+  const int step = gridDim.x * rows;
+  int p0 = blockIdx.x * rows + row;
+  float xv[kStatsUnroll][V];
+  auto load_step = [&]() {
+#pragma unroll
+    for (int u = 0; u < kStatsUnroll; ++u) {
+      const int p = p0 + u * step;
+      if (active && p < a.hw) load_vec<T, V>(xb + (long long)p * a.C, xv[u]);
+    }
+  };
+  load_step();  // the first loads go out before the merge, which they do not wait for
+
+  // the merge, a channel a thread: Chan's rule over the ranges in order
+  float* s_mean = reinterpret_cast<float*>(smem);  // [lanes * V] each, the tile's channels
+  float* s_rstd = s_mean + a.lanes * V;
+  const int ppc = (a.hw + a.parts - 1) / a.parts, tile = min(a.lanes * V, a.C - c0);
+  for (int j = threadIdx.x; j < tile; j += blockDim.x) {
+    const float* pp = a.part + (long long)b * a.parts * 3 * a.C + c0 + j;
+    const float k0 = pp[0];
+    float off = pp[a.C], m2 = pp[2 * a.C], n = (float)min(ppc, a.hw);
+#pragma unroll 4
+    for (int k = 1; k < a.parts; ++k) {
+      const float* q = pp + (long long)k * 3 * a.C;
+      const float nb = (float)min(ppc, a.hw - k * ppc), nn = n + nb, f = nb / nn, w = n * f;
+      const float d = (q[0] - k0) + (q[a.C] - off);
+      off = fmaf(d, f, off);
+      m2 += q[2 * a.C] + d * d * w;
+      n = nn;
+    }
+    s_mean[j] = k0 + off;
+    s_rstd[j] = rsqrtf(m2 / (float)a.hw + a.eps);
+  }
+  __syncthreads();
+  if (!active) return;
+  float mu[V], sc[V], bt[V];
+  load_vec<T, V>(a.gamma + b * a.g_bstride + c, sc);
+  load_vec<T, V>(a.beta + b * a.b_bstride + c, bt);
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    mu[v] = s_mean[lane * V + v];
+    sc[v] = s_rstd[lane * V + v] * (1.f + sc[v]);
+  }
+  T* ob = a.out + (long long)b * a.hw * a.C + c;
+  while (p0 < a.hw) {
+#pragma unroll
+    for (int u = 0; u < kStatsUnroll; ++u) {
+      const int p = p0 + u * step;
+      if (p < a.hw) {
+        float r[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) r[v] = fmaf(xv[u][v] - mu[v], sc[v], bt[v]);
+        store_vec<T, V>(ob + (long long)p * a.C, r);
+      }
+    }
+    p0 += kStatsUnroll * step;
+    load_step();
+  }
+}
+
 constexpr int kDefaultSmem = 48 * 1024;  // dynamic shared memory allowed without the attribute
 constexpr int kMaxDevices = 64;
 
@@ -605,6 +704,57 @@ extern "C" int s2p_fused_mat_norm(const void* x, const void* gamma, const void* 
     return forward<__nv_bfloat16>(x, gamma, beta, gb_bias, out, mean, rstd, batch, hw, C,
                                   g_bstride, g_pstride, b_bstride, b_pstride, eps, tile_c,
                                   cluster, ppc, resident, vec, smem, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+namespace {
+
+template <typename T>
+cudaError_t forward_stats(const void* x, const void* gamma, const void* beta, const void* part,
+                          void* out, int batch, int hw, int C, int parts, long long g_bstride,
+                          long long b_bstride, float eps, int vec, int lanes, int threads,
+                          int grid, int c_tiles, cudaStream_t stream) {
+  constexpr int W = 16 / sizeof(T);
+  const int width = vec ? W : 1;
+  if (batch <= 0 || batch > 65535 || hw <= 0 || C <= 0 || C % width != 0 || parts <= 0)
+    return cudaErrorInvalidValue;
+  if (lanes <= 0 || threads <= 0 || threads > kThreads || threads % lanes != 0 || grid <= 0
+      || c_tiles <= 0 || c_tiles > 65535 || (long long)c_tiles * lanes * width < C
+      || (long long)(c_tiles - 1) * lanes * width >= C)
+    return cudaErrorInvalidValue;
+  if ((long long)(parts - 1) * ((hw + parts - 1) / parts) >= hw)
+    return cudaErrorInvalidValue;  // an empty pixel range
+  const StatsArgs<T> a{static_cast<const T*>(x), static_cast<const T*>(gamma),
+                       static_cast<const T*>(beta), static_cast<const float*>(part),
+                       static_cast<T*>(out), hw, C, parts, lanes, g_bstride, b_bstride, eps};
+  const dim3 dims(grid, c_tiles, batch);
+  const int smem = 2 * lanes * width * static_cast<int>(sizeof(float));
+  if (vec) fused_mat_norm_kernel_stats<T, W><<<dims, threads, smem, stream>>>(a);
+  else fused_mat_norm_kernel_stats<T, 1><<<dims, threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// StyleGAN's AdaIN with given statistics: x and out contiguous NHWC of one
+// dtype (0 = float32, 1 = bfloat16); gamma and beta one row of C values an
+// image (unit channel stride, rows g_bstride and b_bstride apart); part the
+// f32 [batch, parts, 3, C] slots of style_epilogue.cu's statistics variant
+// (ranges of ceil(hw / parts) pixels, none empty). vec ... c_tiles are the
+// plan (cuda_kernels.py::adain_plan). Returns the launch's cudaError_t.
+extern "C" int s2p_fused_mat_norm_stats(const void* x, const void* gamma, const void* beta,
+                                        const void* part, void* out, int batch, int hw, int C,
+                                        int parts, long long g_bstride, long long b_bstride,
+                                        int dtype, float eps, int vec, int lanes, int threads,
+                                        int grid, int c_tiles, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return forward_stats<float>(x, gamma, beta, part, out, batch, hw, C, parts, g_bstride,
+                                b_bstride, eps, vec, lanes, threads, grid, c_tiles, s);
+  if (dtype == 1)
+    return forward_stats<__nv_bfloat16>(x, gamma, beta, part, out, batch, hw, C, parts,
+                                        g_bstride, b_bstride, eps, vec, lanes, threads, grid,
+                                        c_tiles, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

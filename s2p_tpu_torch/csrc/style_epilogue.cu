@@ -62,6 +62,26 @@
 // bias; else the scalar variant runs. The plan (vector path, grid) is
 // computed by the Python wrapper (gan/cuda_kernels.py::style_epilogue_plan);
 // this file only checks that it is consistent.
+//
+// Statistics (style_epilogue_kernel_stats, StyleGAN's fast path). The instance
+// norm that reads x next needs each (image, channel)'s mean and variance over
+// the H*W values stored here, and a plane of up to 2^20 pixels does not fit on
+// chip: taken there, they cost the norm two more reads of x. So this variant
+// also reduces what it stores, and the norm (fused_mat_norm.cu's statistics
+// variant) only normalises. Each CTA takes a contiguous range of ppc pixels of
+// one image (grid: parts x B; the last range may be short, none is empty), and
+// a thread keeps its channel vector throughout (C / V divides the block, so a
+// row of C / V threads covers a pixel). Accumulated are the values as stored
+// (rounded to x's type), shifted by K, the mean of kShiftSamples of them
+// spread over the range, which the first row of threads reads before any
+// thread writes (one barrier hands K to the rest). A thread sums d = y - K and
+// d * d; the threads' sums (one shift, so they add) meet in warp shuffles and
+// shared memory in a fixed order, and the CTA writes its three f32 slots for
+// each channel: K, the mean offset S1 / n and M2 = S2 - S1^2 / n. No atomics,
+// no memset: every slot is written once. The shift keeps
+// the variance exact when |mean| >> std: M2 cancels only as far as K lies from
+// the mean, about std / sqrt(kShiftSamples); and the mean stays split as K +
+// offset for the norm's merge.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -115,6 +135,136 @@ __global__ void __launch_bounds__(kThreads) style_epilogue_kernel(const Epilogue
         }
         store_vec<T, V>(a.x + i * V, r);
       }
+    }
+  }
+}
+
+constexpr int kShiftSamples = 8;  // stored values a statistics CTA averages for its shift
+
+template <typename T>
+struct StatsArgs {
+  T* x;  // [B, hw, C] contiguous, read and written
+  const float* noise;  // [B, hw] contiguous
+  const T* strength;  // [C]
+  const T* bias;  // [C]
+  float* part;  // [B, parts, 3, C]: each CTA's shift, mean offset and M2 a channel
+  int hw, ppc, vpp;  // pixels an image, pixels a CTA, vectors a pixel (C / V, divides kThreads)
+  float slope;
+};
+
+// v as x's type stores it, back in f32.
+template <typename T, int V>
+__device__ __forceinline__ void round_vec(float (&v)[V]) {
+  if constexpr (!std::is_same_v<T, float>) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = __bfloat162float(__float2bfloat16_rn(v[i]));
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads) style_epilogue_kernel_stats(const StatsArgs<T> a) {
+  __shared__ float red[kThreads * 2 * V];  // the threads' sums: [group][lane][S1, S2][V]
+  __shared__ float shift[kThreads * V];  // K: [lane][V]
+  const int vpp = a.vpp, C = vpp * V, lane = threadIdx.x % vpp, row = threadIdx.x / vpp;
+  const int rows = kThreads / vpp, c = lane * V, b = blockIdx.y;
+  const int p0 = blockIdx.x * a.ppc, n = min(a.hw - p0, a.ppc);  // n >= 1 (the plan's)
+  T* xb = a.x + ((long long)b * a.hw + p0) * C + c;
+  const float* nb = a.noise + (long long)b * a.hw + p0;
+  float s[V], bs[V], k[V], s1[V], s2[V];
+  load_vec<T, V>(a.strength + c, s);
+  load_vec<T, V>(a.bias + c, bs);
+  auto activate = [&](float (&r)[V], float nz) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float t = fmaf(nz, s[v], r[v]) + bs[v];
+      r[v] = t > 0.f ? t : t * a.slope;
+    }
+  };
+  if (row == 0) {  // the shift: the mean of a few stored values, spread over the range
+#pragma unroll
+    for (int v = 0; v < V; ++v) k[v] = 0.f;
+    for (int j = 0; j < kShiftSamples; ++j) {
+      const int q = static_cast<int>((2LL * j + 1) * n / (2 * kShiftSamples));
+      float r[V];
+      load_vec<T, V>(xb + (long long)q * C, r);
+      activate(r, nb[q]);
+      round_vec<T, V>(r);
+#pragma unroll
+      for (int v = 0; v < V; ++v) k[v] += r[v];
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) shift[lane * V + v] = k[v] * (1.f / kShiftSamples);
+  }
+  __syncthreads();  // the samples are read before any thread writes them
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    k[v] = shift[lane * V + v];
+    s1[v] = s2[v] = 0.f;
+  }
+  for (int p = row; p < n; p += rows * kUnroll) {
+    float xv[kUnroll][V], nz[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int q = p + u * rows;
+      if (q < n) {
+        load_vec<T, V>(xb + (long long)q * C, xv[u]);
+        nz[u] = nb[q];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int q = p + u * rows;
+      if (q < n) {
+        activate(xv[u], nz[u]);
+        store_vec<T, V>(xb + (long long)q * C, xv[u]);
+        round_vec<T, V>(xv[u]);
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const float d = xv[u][v] - k[v];
+          s1[v] += d;
+          s2[v] = fmaf(d, d, s2[v]);
+        }
+      }
+    }
+  }
+  // the sums of each channel vector: across the rows of a warp (vpp < 32), then
+  // the groups left (the warps, or the rows when a row spans warps) in shared memory
+  for (int off = vpp; off < 32; off <<= 1) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      s1[v] += __shfl_xor_sync(0xffffffffu, s1[v], off);
+      s2[v] += __shfl_xor_sync(0xffffffffu, s2[v], off);
+    }
+  }
+  const bool by_warp = vpp < 32;
+  const int groups = by_warp ? kThreads / 32 : rows, g = by_warp ? threadIdx.x / 32 : row;
+  if (!by_warp || threadIdx.x % 32 < vpp) {
+    float* dst = red + (g * vpp + lane) * 2 * V;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      dst[v] = s1[v];
+      dst[V + v] = s2[v];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < vpp) {  // row 0: the CTA's slots for its channels
+#pragma unroll
+    for (int v = 0; v < V; ++v) s1[v] = s2[v] = 0.f;
+    for (int gi = 0; gi < groups; ++gi) {
+      const float* src = red + (gi * vpp + lane) * 2 * V;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        s1[v] += src[v];
+        s2[v] += src[V + v];
+      }
+    }
+    float* dst = a.part + ((long long)b * gridDim.x + blockIdx.x) * 3 * C + c;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float off = s1[v] / (float)n;
+      dst[v] = k[v];
+      dst[C + v] = off;
+      dst[2 * C + v] = fmaxf(0.f, s2[v] - s1[v] * off);
     }
   }
 }
@@ -360,6 +510,49 @@ extern "C" int s2p_style_epilogue(void* x, const void* noise, const void* streng
     return epilogue<float>(x, noise, strength, bias, elems, C, slope, vec, grid, s);
   if (dtype == 1)
     return epilogue<__nv_bfloat16>(x, noise, strength, bias, elems, C, slope, vec, grid, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+namespace {
+
+template <typename T>
+cudaError_t epilogue_stats(void* x, const void* noise, const void* strength, const void* bias,
+                           void* part, int batch, int hw, int C, int parts, float slope, int vec,
+                           cudaStream_t stream) {
+  constexpr int W = 16 / sizeof(T);
+  const int width = vec ? W : 1;
+  if (batch <= 0 || batch > 65535 || hw <= 0 || C <= 0 || C % width != 0 || parts <= 0)
+    return cudaErrorInvalidValue;
+  const int vpp = C / width, ppc = (hw + parts - 1) / parts;
+  if (vpp > kThreads || kThreads % vpp != 0 || (long long)(parts - 1) * ppc >= hw)
+    return cudaErrorInvalidValue;  // a thread's channels change, or a part is empty
+  const StatsArgs<T> a{static_cast<T*>(x), static_cast<const float*>(noise),
+                       static_cast<const T*>(strength), static_cast<const T*>(bias),
+                       static_cast<float*>(part), hw, ppc, vpp, slope};
+  const dim3 grid(parts, batch);
+  if (vec) style_epilogue_kernel_stats<T, W><<<grid, kThreads, 0, stream>>>(a);
+  else style_epilogue_kernel_stats<T, 1><<<grid, kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The statistics variant: x [batch, hw, C] as above, and part (f32 [batch,
+// parts, 3, C], written whole) the slots of each CTA's range of ceil(hw /
+// parts) pixels: the shift, the mean offset and M2 of the values stored. vec
+// and parts are the plan (cuda_kernels.py::style_stats_plan): C / V must divide
+// the block and no range may be empty. Returns the launch's cudaError_t.
+extern "C" int s2p_style_epilogue_stats(void* x, const void* noise, const void* strength,
+                                        const void* bias, void* part, int batch, int hw, int C,
+                                        int parts, float slope, int dtype, int vec,
+                                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return epilogue_stats<float>(x, noise, strength, bias, part, batch, hw, C, parts, slope,
+                                 vec, s);
+  if (dtype == 1)
+    return epilogue_stats<__nv_bfloat16>(x, noise, strength, bias, part, batch, hw, C, parts,
+                                         slope, vec, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -44,6 +44,13 @@ before the launch, how a launch meets that bound:
 pixels, views of pixel stride 0 (StyleGAN's AdaIN, ``stylegan.adain_nchw``):
 the kernel reads them as it reads any pixel stride, and
 ``fused_mat_norm.style_launches`` counts those launches beside ``launches``.
+Given ``stats``, the partial statistics that ``style_epilogue_stats`` wrote
+while it wrote x (StyleGAN's fast path), the forward is another kernel of the
+same source, ``fused_mat_norm_kernel_stats``: it merges the partials and makes
+one pass, x read once and out written once (``adain_plan``;
+``fused_mat_norm_stats_plain`` is its plain version, ``stats_launches`` counts
+it), where the statistics passes read a 2^20-pixel plane three times. Inference
+only, with γ and β at pixel stride 0.
 
 ``spade_norm`` is SPADE's modulation with given per-channel statistics,
 ``(x·a + b)·(1 + γ) + β`` (GauGAN's generator at inference, whose batch
@@ -87,7 +94,11 @@ of ``upsample_conv_2d`` read from the transposed conv's output (``fir_src``;
 ``fir_plain`` is its plain version), and for a layer that feeds toRGB the
 skip generator's toRGB and RGB upsample (``rgb``; ``rgb_plain``);
 ``style_demod_plain`` is its plain version, and ``style_epilogue.demod_launches``
-counts its launches beside ``style_epilogue.launches``.
+counts its launches beside ``style_epilogue.launches``. ``style_epilogue_stats``
+is StyleGAN's fast-path variant (``style_epilogue_kernel_stats``): the same
+pass, each CTA on a contiguous pixel range of one image (``style_stats_plan``),
+also writing the range's partial statistics of the values it stores for the
+norm that reads x next (``style_stats_plain``; ``style_epilogue.stats_launches``).
 
 Each kernel source is compiled by ``nvcc`` for ``sm_90a`` at its first use
 into ``build/s2p_tpu_torch/`` beside the package, named by the hash of its
@@ -101,6 +112,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import subprocess
 import tempfile
@@ -181,6 +193,10 @@ def load_library() -> ctypes.CDLL:
     bwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                     + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     bwd.restype = ctypes.c_int
+    stats = lib.s2p_fused_mat_norm_stats
+    stats.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
+                      + [ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    stats.restype = ctypes.c_int
     return lib
 
 
@@ -501,16 +517,25 @@ class FusedMATNorm(torch.autograd.Function):
 
 
 def fused_mat_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                   eps: float = 1e-5, gb_bias: torch.Tensor | None = None) -> torch.Tensor:
+                   eps: float = 1e-5, gb_bias: torch.Tensor | None = None,
+                   stats: torch.Tensor | None = None) -> torch.Tensor:
     """``instance_norm(x) * (1 + gamma) + beta`` for NHWC ``[B, H, W, C]``
     tensors in float32 or bfloat16, differentiable in x, gamma and beta. On
     the card: the CUDA kernels. x must be contiguous; gamma and beta need
     unit channel stride only (they may be channel slices of one wider
     tensor). ``gb_bias`` ``[2C]``, inference only, is added to γ and β
     inside the forward kernel (the γ‖β conv's bias, see the module
-    docstring)."""
+    docstring). ``stats``, inference only, are x's partial statistics as
+    ``style_epilogue_stats`` returned them (γ and β at pixel stride 0): the
+    norm then only normalises and modulates (``fused_mat_norm_stats_plain``
+    on the CPU)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_mat_norm: unsupported device {x.device}")
+    if stats is not None:
+        g_b, b_b = _check_stats(x, gamma, beta, stats, gb_bias)
+        if x.device.type == "cpu":
+            return fused_mat_norm_stats_plain(x, gamma, beta, stats, eps)
+        return _launch_stats(x, gamma, beta, stats, eps, g_b, b_b)
     if gb_bias is not None:
         _check_gb_bias("fused_mat_norm", gb_bias, x, gamma, beta)
     if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
@@ -523,6 +548,7 @@ def fused_mat_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 fused_mat_norm.launches = fused_mat_norm.bias_launches = fused_mat_norm.style_launches = 0
+fused_mat_norm.stats_launches = 0
 fused_mat_norm_bwd.launches = 0
 
 
@@ -690,21 +716,26 @@ def hidden_maps_plan(batch: int, hw: int, widths: tuple, dtype: torch.dtype, vec
     """The launch plan of one ``hidden_maps`` call over ``batch`` images of
     ``hw`` pixels and the norms' ``widths``: the vector path when every
     width is a multiple of a 16-byte vector and ``vec_ok`` (every base
-    pointer and stride 16-byte aligned); a channel tile of at most
-    ``HIDDEN_THREADS`` threads; as many rows of tiles as fit in a block; and
-    blocks enough for an image's pixels at ``HIDDEN_UNROLL`` a thread, at
-    most ``HIDDEN_BLOCKS_PER_SM`` an SM over the images and tiles (the
-    kernel loops over the rest)."""
+    pointer and stride 16-byte aligned), laid out by ``_image_grid``."""
     width = 16 // dtype.itemsize
     vec = vec_ok and all(w % width == 0 for w in widths)
-    vectors = sum(widths) // width if vec else sum(widths)
+    return HiddenMapsPlan(vec, *_image_grid(batch, hw, sum(widths) // width if vec
+                                            else sum(widths), sms))
+
+
+def _image_grid(batch: int, hw: int, vectors: int, sms: int) -> tuple:
+    """(lanes, threads, c_tiles, grid) of a one-pass kernel whose blocks each
+    walk one image's ``hw`` pixels of ``vectors`` channel vectors (the images
+    are the grid's z): a channel tile of at most ``HIDDEN_THREADS`` threads, as
+    many rows of tiles as fit in a block, and blocks enough for an image's
+    pixels at ``HIDDEN_UNROLL`` a thread, at most ``HIDDEN_BLOCKS_PER_SM`` an SM
+    over the images and tiles (the kernel loops over the rest)."""
     lanes = min(vectors, HIDDEN_THREADS)
     threads = lanes * (HIDDEN_THREADS // lanes)
     c_tiles = -(-vectors // lanes)
     rows = threads // lanes
     cap = max(1, HIDDEN_BLOCKS_PER_SM * sms // (c_tiles * batch))
-    grid = max(1, min(-(-hw // (rows * HIDDEN_UNROLL)), cap))
-    return HiddenMapsPlan(vec=vec, lanes=lanes, threads=threads, c_tiles=c_tiles, grid=grid)
+    return lanes, threads, c_tiles, max(1, min(-(-hw // (rows * HIDDEN_UNROLL)), cap))
 
 
 def _hidden_outputs(h: torch.Tensor, widths: tuple) -> tuple:
@@ -841,6 +872,10 @@ def load_style_epilogue_library() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
                    + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.s2p_style_epilogue_stats
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -1067,4 +1102,203 @@ def _check_style_demod(x, demod, mod, fir_src, taps, rgb, rgb_w, rgb_bias, rgb_p
                          "with rgb_prev")
 
 
-style_epilogue.launches = style_epilogue.demod_launches = 0
+style_epilogue.launches = style_epilogue.demod_launches = style_epilogue.stats_launches = 0
+
+
+# -- StyleGAN's AdaIN with the statistics taken in the epilogue ---------------------------
+
+# the statistics epilogue's grid over the images: about 8 CTAs an SM of the H100's 132, fixed
+# (not read from the card) so that the partition, and so the arithmetic, is the same anywhere
+STATS_TARGET_CTAS = 1056
+STATS_SLOTS = 3  # a pixel range's shift, mean offset and M2, for each channel
+STATS_SHIFT_SAMPLES = 8  # stored values a range's shift averages (kShiftSamples)
+# every CTA of the norm re-reads all the ranges' slots of its image (12 bytes a channel a
+# range): ranges ≤ sqrt(hw / STATS_SLOT_PIXELS) and the norm's CTAs ≤ ranges keep those reads
+# under a tenth of x's bf16 bytes
+STATS_SLOT_PIXELS = 32
+
+
+@functools.cache
+def style_stats_plan(batch: int, hw: int, C: int, dtype: torch.dtype,
+                     vec_ok: bool) -> tuple[bool, int]:
+    """(vector path, parts) of one ``style_epilogue_stats`` launch over
+    ``batch`` images of ``hw`` pixels: the vector path as
+    ``style_epilogue_plan``'s, and each image cut into ``parts`` contiguous
+    ranges of ``ceil(hw / parts)`` pixels, one CTA each: as many as give every
+    thread ``STYLE_UNROLL`` vectors, at most ``STATS_TARGET_CTAS`` over the
+    batch and ``sqrt(hw / STATS_SLOT_PIXELS)``, none empty. A thread keeps
+    its channels, so the vectors of a pixel must divide the block (every
+    StyleGAN width does, 512 to 16)."""
+    width = 16 // dtype.itemsize
+    vec = vec_ok and C % width == 0
+    vpp = C // width if vec else C
+    if vpp > STYLE_THREADS or STYLE_THREADS % vpp:
+        raise ValueError(f"style_epilogue_stats: {vpp} {'vectors' if vec else 'channels'} a "
+                         f"pixel (C = {C}, {dtype}) do not divide a block of {STYLE_THREADS} "
+                         "threads")
+    if batch <= 0 or hw <= 0:
+        raise ValueError(f"style_epilogue_stats: no statistics of {batch} images of {hw} pixels")
+    parts = max(1, min(-(-hw * vpp // (STYLE_THREADS * STYLE_UNROLL)),
+                       -(-STATS_TARGET_CTAS // batch), math.isqrt(hw // STATS_SLOT_PIXELS)))
+    return vec, -(-hw // -(-hw // parts))  # as many ranges as ceil(hw / parts) pixels make
+
+
+def _part_ranges(hw: int, parts: int) -> list:
+    """The ``(first pixel, pixels)`` of each of ``parts`` ranges of ``ceil(hw /
+    parts)`` pixels; raises if one is empty."""
+    ppc = -(-hw // parts)
+    if parts <= 0 or (parts - 1) * ppc >= hw:
+        raise ValueError(f"{parts} ranges of {ppc} pixels leave one of {hw} pixels empty")
+    return [(k * ppc, min(ppc, hw - k * ppc)) for k in range(parts)]
+
+
+def style_stats_plain(y: torch.Tensor, parts: int) -> torch.Tensor:
+    """The partial statistics ``style_epilogue_stats`` writes of the stored
+    values y ``[B, H, W, C]``: for each of the ``parts`` pixel ranges of an
+    image (``style_stats_plan``'s), the shift K (the mean of y at the
+    midpoints of ``STATS_SHIFT_SAMPLES`` equal slices of the range, summed in
+    order), the mean offset S1/n and M2 = S2 − S1²/n of d = y − K, as
+    ``[B, parts, 3, C]`` in the accumulation type."""
+    B, H, W, C = y.shape
+    v = _acc(y).reshape(B, H * W, C)
+    out = v.new_empty(B, parts, STATS_SLOTS, C)
+    for k, (p0, n) in enumerate(_part_ranges(H * W, parts)):
+        seg = v[:, p0:p0 + n]
+        shift = torch.zeros_like(seg[:, 0])
+        for j in range(STATS_SHIFT_SAMPLES):
+            shift = shift + seg[:, (2 * j + 1) * n // (2 * STATS_SHIFT_SAMPLES)]
+        shift = shift * (1.0 / STATS_SHIFT_SAMPLES)
+        d = seg - shift[:, None]
+        s1, s2 = d.sum(dim=1), d.square().sum(dim=1)
+        off = s1 / n
+        out[:, k, 0], out[:, k, 1], out[:, k, 2] = shift, off, (s2 - s1 * off).clamp_min(0)
+    return out
+
+
+def merge_stats_plain(stats: torch.Tensor, hw: int) -> tuple:
+    """(mean, M2) ``[B, C]`` of ``hw``-pixel planes from their partial
+    statistics ``[B, parts, 3, C]``, merged as the norm kernel merges them:
+    Chan's rule over the ranges in order, each mean kept as its shift plus its
+    offset, n·f and f = n_b / (n + n_b) in the statistics' type."""
+    k0, off, m2 = stats[:, 0, 0], stats[:, 0, 1].clone(), stats[:, 0, 2].clone()
+    ranges = _part_ranges(hw, stats.shape[1])
+    n = torch.tensor(float(ranges[0][1]), dtype=stats.dtype)
+    for k, (_, nb) in enumerate(ranges[1:], 1):
+        nb = torch.tensor(float(nb), dtype=stats.dtype)
+        nn = n + nb
+        f = nb / nn
+        w = n * f
+        d = (stats[:, k, 0] - k0) + (stats[:, k, 1] - off)
+        off = off + d * f
+        m2 = m2 + (stats[:, k, 2] + d * d * w)
+        n = nn
+    return k0 + off, m2
+
+
+def fused_mat_norm_stats_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                               stats: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``fused_mat_norm`` with x's statistics given as partials
+    (``style_stats_plain``), merged by ``merge_stats_plain``: ``(x − mean) ·
+    (rstd · (1 + γ)) + β``, computed in the accumulation type and cast back to
+    x's, as the kernel does."""
+    B, H, W, C = x.shape
+    mean, m2 = merge_stats_plain(stats, H * W)
+    rstd = torch.rsqrt(m2 / (H * W) + eps)
+    scale = rstd[:, None, None, :] * (1.0 + _acc(gamma))
+    return ((_acc(x) - mean[:, None, None, :]) * scale + _acc(beta)).to(x.dtype)
+
+
+def _check_stats(x, gamma, beta, stats, gb_bias) -> tuple:
+    """Raise unless ``stats`` are partial statistics the norm can read for x,
+    with γ and β at pixel stride 0 and no gradient to record; returns γ's and
+    β's batch strides."""
+    for name, t in (("gamma", gamma), ("beta", beta)):
+        _check(name, t, x)
+    if x.dim() != 4 or x.dtype not in _DTYPES or not x.is_contiguous():
+        raise ValueError(f"fused_mat_norm: x must be contiguous 4-D float32/bfloat16 NHWC, got "
+                         f"{x.dtype} {tuple(x.shape)} strides {x.stride()}")
+    B, H, W, C = x.shape
+    (g_b, g_p), (b_b, b_p) = (_batch_pixel_strides(gamma, "gamma"),
+                              _batch_pixel_strides(beta, "beta"))
+    if (g_p, b_p) != (0, 0) and H * W > 1:
+        raise ValueError("fused_mat_norm: with stats, gamma and beta must be one value an image "
+                         f"and channel (pixel stride 0), got pixel strides {g_p}, {b_p}")
+    if (stats.dim() != 4 or stats.shape[0] != B or stats.shape[2:] != (STATS_SLOTS, C)
+            or stats.dtype != torch.float32 or stats.device != x.device
+            or not stats.is_contiguous()):
+        raise ValueError(f"fused_mat_norm: stats must be contiguous float32 [{B}, parts, "
+                         f"{STATS_SLOTS}, {C}] on {x.device}, got {stats.dtype} "
+                         f"{tuple(stats.shape)} on {stats.device}")
+    _part_ranges(H * W, stats.shape[1])
+    if gb_bias is not None:
+        raise ValueError("fused_mat_norm: stats and gb_bias do not go together")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, gamma, beta, stats)):
+        raise RuntimeError("fused_mat_norm: given stats have no backward: call it under "
+                           "torch.no_grad()")
+    return g_b, b_b
+
+
+@functools.cache
+def adain_plan(batch: int, hw: int, C: int, dtype: torch.dtype, vec_ok: bool, sms: int,
+               parts: int) -> HiddenMapsPlan:
+    """The launch plan of one ``fused_mat_norm`` call with ``stats`` of
+    ``parts`` ranges an image: the vector path when C is a multiple of a
+    16-byte vector and ``vec_ok`` (x, γ, β and out 16-byte aligned, γ's and
+    β's rows too), the one-pass image grid of ``_image_grid``
+    (``kStatsUnroll`` and ``kThreads`` in the .cu are ``HIDDEN_UNROLL`` and
+    ``HIDDEN_THREADS``) with at most ``parts`` CTAs an image, since each
+    re-reads every range's slots (``STATS_SLOT_PIXELS``)."""
+    width = 16 // dtype.itemsize
+    vec = vec_ok and C % width == 0
+    lanes, threads, c_tiles, grid = _image_grid(batch, hw, C // width if vec else C, sms)
+    return HiddenMapsPlan(vec, lanes, threads, c_tiles, min(grid, parts))
+
+
+def _launch_stats(x, gamma, beta, stats, eps, g_b, b_b):
+    """The given-statistics kernel (operands checked by ``_check_stats``)."""
+    B, H, W, C = x.shape
+    out = torch.empty_like(x)
+    bits = x.data_ptr() | gamma.data_ptr() | beta.data_ptr() | out.data_ptr()
+    bits |= (g_b | b_b) * x.element_size()
+    plan = adain_plan(B, H * W, C, x.dtype, bits % 16 == 0, _sm_count(x.device.index),
+                      stats.shape[1])
+    err = _on_stream(x, load_library().s2p_fused_mat_norm_stats,
+                     x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), stats.data_ptr(),
+                     out.data_ptr(), B, H * W, C, stats.shape[1], g_b, b_b, _DTYPES[x.dtype], eps,
+                     int(plan.vec), plan.lanes, plan.threads, plan.grid, plan.c_tiles)
+    if err != 0:
+        raise RuntimeError(f"fused_mat_norm: stats kernel launch failed with cudaError {err}")
+    fused_mat_norm.launches += 1
+    fused_mat_norm.style_launches += 1
+    fused_mat_norm.stats_launches += 1
+    return out
+
+
+def style_epilogue_stats(x: torch.Tensor, noise: torch.Tensor, strength: torch.Tensor,
+                         bias: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    """``style_epilogue`` in place, returning the partial statistics of the
+    values it stores, for ``fused_mat_norm(..., stats=)``: ``[B, parts, 3,
+    C]`` float32 (``style_stats_plan``'s ranges, ``style_stats_plain``'s
+    slots). On the card: the statistics kernel, for inference only, counted
+    in ``style_epilogue.launches`` and ``.stats_launches``; on the CPU the
+    plain versions."""
+    _check_style_epilogue(x, noise, strength, bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, noise, strength, bias)):
+        raise RuntimeError("style_epilogue_stats has no backward: call it under torch.no_grad()")
+    B, H, W, C = x.shape
+    bits = x.data_ptr() | strength.data_ptr() | bias.data_ptr()
+    vec, parts = style_stats_plan(B, H * W, C, x.dtype, bits % 16 == 0)
+    if x.device.type == "cpu":
+        x.copy_(style_epilogue_plain(x, noise, strength, bias, slope))
+        return style_stats_plain(x, parts)
+    if x.device.type != "cuda":
+        raise ValueError(f"style_epilogue_stats: unsupported device {x.device}")
+    stats = torch.empty(B, parts, STATS_SLOTS, C, device=x.device, dtype=torch.float32)
+    err = _on_stream(x, load_style_epilogue_library().s2p_style_epilogue_stats,
+                     x.data_ptr(), noise.data_ptr(), strength.data_ptr(), bias.data_ptr(),
+                     stats.data_ptr(), B, H * W, C, parts, slope, _DTYPES[x.dtype], int(vec))
+    if err != 0:
+        raise RuntimeError(f"style_epilogue_stats: kernel launch failed with cudaError {err}")
+    style_epilogue.launches += 1
+    style_epilogue.stats_launches += 1
+    return stats

@@ -54,9 +54,10 @@ fold into ONE ``[dlatent, Σ 2C]`` GEMM over the mapping's output w
 The mapping and that GEMM run in float32 (a few MFLOP a pass), and the
 styles are rounded once to the generator's type. Each layer's epilogue is
 two hand-written kernels: the noise draw, then noise, bias and leaky ReLU in
-one in-place pass (``cuda_kernels.style_epilogue``, span
-``s2p.style.noise``); then the MAT-norm kernel with the layer's γ‖β slice
-of the styles at pixel stride 0.
+one in-place pass that also takes x's instance-norm statistics as it stores
+x (``cuda_kernels.style_epilogue_stats``, span ``s2p.style.noise``); then
+the MAT-norm kernel with the layer's γ‖β slice of the styles at pixel
+stride 0 and those statistics, which reads x once.
 
 A ``StyleGAN2Generator`` renders through the same ``synthesize_style_fast``
 (dispatched on the generator's family) and ``fuse_fast_params``. Its
@@ -85,7 +86,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from s2p_tpu_torch.gan.cuda_kernels import hidden_maps, style_demod_epilogue, style_epilogue
+from s2p_tpu_torch.gan.cuda_kernels import (hidden_maps, style_demod_epilogue,
+                                           style_epilogue_stats)
 from s2p_tpu_torch.gan.generator import (CL, S2PGenerator, SPADEGenerator, label_onehot,
                                          mat_norm_nchw, spade_norm_nchw, upsample_nearest)
 from s2p_tpu_torch.gan.rollout import generate_rollout
@@ -551,8 +553,9 @@ def _style_layer(x: torch.Tensor, lp: Params, styles: torch.Tensor, layer: int,
                  noise_gen: Optional[torch.Generator]) -> torch.Tensor:
     """One synthesis layer on the fast path: its conv (the constant, a 3×3
     conv, or the up layer's transposed conv and blur), then the epilogue:
-    noise, bias and leaky ReLU in place (the style-epilogue kernel), then
-    AdaIN on the MAT-norm kernel."""
+    noise, bias and leaky ReLU in place (the style-epilogue kernel's
+    statistics variant, which also returns x's partial statistics), then
+    AdaIN on the MAT-norm kernel with those statistics: one pass over x."""
     B = styles.shape[0]
     if lp["kind"] == "const":  # a copy: the epilogue writes it in place
         x = lp["const"].expand(B, -1, -1, -1).clone(memory_format=CL)
@@ -564,10 +567,10 @@ def _style_layer(x: torch.Tensor, lp: Params, styles: torch.Tensor, layer: int,
             x = _cl(F.conv2d(_cl(x), lp["blur"], None, padding=1, groups=x.shape[1]))
     with annotate("s2p.style.noise"):
         n = noise_map(B, layer, noise_gen, x.device)
-        style_epilogue(x.permute(0, 2, 3, 1), n.view(B, *n.shape[2:]), lp["noise"], lp["bias"],
-                       LRELU)
+        stats = style_epilogue_stats(x.permute(0, 2, 3, 1), n.view(B, *n.shape[2:]), lp["noise"],
+                                     lp["bias"], LRELU)
     off, C = lp["style"]
-    return adain_nchw(x, styles[:, off:off + 2 * C])
+    return adain_nchw(x, styles[:, off:off + 2 * C], stats)
 
 
 @torch.no_grad()

@@ -19,8 +19,10 @@ Each layer's instance norm and style modulation (AdaIN) is ONE call of the
 MAT-norm kernel (``cuda_kernels.fused_mat_norm``, ``adain_nchw``): its
 ``instance_norm(x)·(1 + γ) + β`` with γ and β one value per image and
 channel, handed to it as views of pixel stride 0 (no map is materialised);
-``fused_mat_norm.style_launches`` counts those launches. On the CPU the
-kernel's plain version runs.
+``fused_mat_norm.style_launches`` counts those launches. On the fast path
+the epilogue kernel before it hands it x's statistics too
+(``fused_mat_norm.stats_launches``). On the CPU the kernels' plain versions
+run.
 
 Parameters are named after the official variables, '/' read as '.'
 (``G_mapping.Dense{i}.weight``, ``G_synthesis.{r}x{r}.Conv0_up.weight``,
@@ -120,17 +122,21 @@ def blur_kernel(channels: int, taps: Sequence[int], dtype=torch.float32,
     return f.expand(channels, 1, *f.shape).contiguous().to(device)
 
 
-def adain_nchw(x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+def adain_nchw(x: torch.Tensor, style: torch.Tensor,
+               stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``style_mod(instance_norm(x))``: x NCHW (channels_last memory), style
     ``[B, 2C]`` (γ's C values, then β's, unit channel stride), through the
     MAT-norm kernel's NHWC views with γ and β broadcast over the pixels at
-    stride 0; ε 1e-8. Returns NCHW in channels_last memory."""
+    stride 0; ε 1e-8. ``stats``: x's partial statistics from
+    ``cuda_kernels.style_epilogue_stats`` (the fast path), which the norm then
+    reads in place of its own passes over x. Returns NCHW in channels_last
+    memory."""
     B, C, H, W = x.shape
     g = style[:, :C].view(B, 1, 1, C).expand(B, H, W, C)
     b = style[:, C:].view(B, 1, 1, C).expand(B, H, W, C)
     with annotate("s2p.style.adain"):
         out = fused_mat_norm(x.contiguous(memory_format=CL).permute(0, 2, 3, 1), g, b,
-                             eps=NORM_EPS)
+                             eps=NORM_EPS, stats=stats)
     return out.permute(0, 3, 1, 2)
 
 

@@ -448,13 +448,12 @@ class Spy:
 
 def test_launch_counts_of_each_family(monkeypatch):
     """StyleGAN2's fast pass: one demodulating epilogue a conv layer (17 at
-    1024²) and no MAT norm; StyleGAN's: one plain epilogue a layer (18 at
-    1024²) and none demodulating; S2P's fast and module paths: none."""
-    epilogue, demod = Spy(ck.style_epilogue), Spy(ck.style_demod_epilogue)
+    1024²) and no MAT norm; StyleGAN's: one statistics epilogue a layer (18
+    at 1024²) and none demodulating; S2P's fast and module paths: none."""
+    epilogue, demod = Spy(ck.style_epilogue_stats), Spy(ck.style_demod_epilogue)
     norm = Spy(sg.fused_mat_norm)
-    monkeypatch.setattr(fi, "style_epilogue", epilogue)
+    monkeypatch.setattr(fi, "style_epilogue_stats", epilogue)
     monkeypatch.setattr(fi, "style_demod_epilogue", demod)
-    monkeypatch.setattr(sg, "style_epilogue", epilogue)
     monkeypatch.setattr(sg, "fused_mat_norm", norm)
     gen2 = port_generator(TINY, seeded_weights(TINY))
     synthesize_style_fast(gen2, latents(2))
